@@ -27,7 +27,27 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    counters, per-MN bytes);
 7. fires ``add_mn`` under fleet load on the card, requires every read batch
    of the migration's dual-write windows and bulk copy to launch
-   ``fleet_read`` once, and holds that run against the same run on ``cpu``.
+   ``fleet_read`` once, and holds that run against the same run on ``cpu``;
+8. holds ``flash_attention`` and ``paged_attention`` against their plain
+   versions at the edges (bf16 and f32, GQA groups 1 and 4, ragged and
+   page-edge lengths; run right after step 2);
+9. serves llama3-8b at full width and depth (``configs/llama3_8b.py``, bf16
+   weights drawn from ``--seed``) through ``ServeEngine`` over the FUSEE
+   prefix-cache pool: 8 requests of a shared 1024-token system prompt plus
+   128 tokens of their own, 16 new tokens each, max_batch 4.  The launch
+   counts are set to 0 just before and read just after: one
+   ``flash_attention`` launch per layer per (re)prefill, one
+   ``paged_attention`` launch per layer per decode step, ``race_lookup``
+   for the prefix SEARCH (a warm-up prefill and decode step at the run's
+   shapes come first, outside the counts and the timed window).  It checks
+   tokens, second-wave prefix hits and replica convergence, then holds each
+   kernel against its plain version on the largest inputs the run gave it
+   (``race_lookup``: equal ptr and found) and times each attention kernel
+   there, beside ``scaled_dot_product_attention``;
+10. runs the engine scenario of ``tests/test_serving.py`` at reduced size in
+   f32 (as defined in ``tests/_torch_parity.py``) on ``cuda`` and on
+   ``cpu`` with the same weights and requires equal tokens, prefix hits
+   and per-key SEARCH results.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -650,6 +670,450 @@ def phase_migration():
     compare(a, signature(c_cl, c_fleet), "add_mn run")
 
 
+# ------------------------------------------------------------ serving path
+PEAK_BF16_FLOPS = 989e12            # H100 SXM dense bf16, NVIDIA data sheet
+SERVE_POOL = dict(n_pages=2048, n_buckets=512, slots_per_bucket=8,
+                  replicas=3)       # examples/serve_fusee.py's pool
+
+
+def check_close(got, want, bound, what: str):
+    """|got - want| <= bound everywhere; returns the largest share of the
+    bound used, the max absolute error and the mean |want| (the typical
+    output, printed beside the error)."""
+    err = (got.float() - want.float()).abs()
+    typical = float(want.float().abs().mean().item())
+    worst = int((err - bound).argmax().item())
+    check(bool((err <= bound).all()),
+          f"{what}: kernel and plain version differ by "
+          f"{err.flatten()[worst].item():.3g} where the bound is "
+          f"{bound.flatten()[worst].item():.3g} (max abs err "
+          f"{err.max().item():.3g}, mean |ref| {typical:.3g})")
+    used = float((err / bound).nan_to_num(0.0).max().item())
+    return used, float(err.max().item()), typical
+
+
+def check_attn(kernel, plain, q, k, v, *rest, what: str, **kw):
+    """``kernel`` against ``plain`` on (q, k, v, *rest) within
+    ``attn_bound`` (tests/_torch_parity.py: 2e-5 in f32; in bf16 one
+    rounding of the output and of each attention weight)."""
+    from _torch_parity import attn_bound
+    want = plain(q, k, v, *rest, **kw)
+    out = kernel(q, k, v, *rest, **kw)
+    bound = attn_bound(want, plain(q, k, v.abs(), *rest, **kw))
+    return (out,) + check_close(out, want, bound, what)
+
+
+def phase_serve_edge_checks(dev):
+    """(a) both attention kernels against their plain versions on the card
+    at the edges: bf16 and f32, GQA groups 1 and 4, ragged and page-edge
+    lengths; and the bf16 flash kernel on inputs whose attention weights
+    are exact, where one key too many or too few in a row would show."""
+    import torch
+    from _torch_parity import uniform_attn_inputs
+    from repro_torch.kernels import (flash_attention, flash_attention_plain,
+                                     paged_attention, paged_attention_plain)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s, dt: torch.randn(s, generator=gen, device=dev).to(dt)
+    worst = {}
+
+    def note(name, dt, res):
+        used, err, typical = res[-3:]
+        key = f"{name} {str(dt).split('.')[-1]}"
+        w = worst.get(key, (0.0, 0.0, float("inf")))
+        worst[key] = (max(w[0], used), max(w[1], err), min(w[2], typical))
+    for dt in (torch.bfloat16, torch.float32):
+        for kv in (4, 1):                          # G = 1 and G = 4
+            cases = [(s, s, c) for s in (1, 63, 65, 1152)
+                     for c in (True, False)] + [(65, 300, False),
+                                                (300, 65, False)]
+            for sq, skv, causal in cases:
+                q = rnd(1, 4, sq, 128, dt=dt)
+                k, v = rnd(1, kv, skv, 128, dt=dt), rnd(1, kv, skv, 128, dt=dt)
+                what = (f"flash_attention {dt} G={4 // kv} Sq={sq} "
+                        f"Skv={skv} causal={causal}")
+                note("flash_attention", dt, check_attn(
+                    flash_attention, flash_attention_plain, q, k, v,
+                    causal=causal, what=what))
+                if dt == torch.bfloat16:
+                    qu, vu = uniform_attn_inputs(q, v)
+                    want = flash_attention_plain(qu, k, vu, causal=causal)
+                    note("flash_attention uniform", dt, check_close(
+                        flash_attention(qu, k, vu, causal=causal), want,
+                        1e-4 + 2 ** -7 * want.float().abs(),
+                        what + " (uniform weights)"))
+        nb, tb = 2, 1024
+        for H in (8, 32):                          # G = 1 and G = 4
+            q = rnd(4, H, 128, dt=dt)
+            kc, vc = (rnd(nb, tb, 4, 8, 128, dt=dt) for _ in range(2))
+            for vl in (1, tb - 1, tb, tb + 1, nb * tb):
+                note("paged_attention", dt, check_attn(
+                    paged_attention, paged_attention_plain, q, kc, vc, vl,
+                    what=f"paged_attention {dt} G={H // 8} valid_len={vl}"))
+    torch.cuda.synchronize()
+    log(f"[serve] edge checks: flash_attention (bf16/f32, G 1/4, Sq=Skv in "
+        f"1/63/65/1152 causal and not, Sq != Skv) and paged_attention "
+        f"(bf16/f32, G 1/4, valid_len 1/1023/1024/1025/2048) within "
+        f"tolerance of their plain versions (f32: 2e-5 + 2e-5 x |ref|; "
+        f"bf16: 2^-7 x |ref| + 2^-8 x the weighted mean of |v|, and 1e-4 + "
+        f"2^-7 x |ref| with exact weights); largest share of the bound, max "
+        f"abs err, smallest mean |ref| of a case: " + "; ".join(
+            f"{k} {u:.3f}, {e:.3g}, {t:.3g}"
+            for k, (u, e, t) in worst.items()))
+
+
+class ServeCapture:
+    """Keeps the inputs of the largest launch of each attention kernel and
+    of every SEARCH during the serve run (for the checks and timings at the
+    path's own shapes) and counts the wrappers' calls.  For attention it
+    holds references: the port never writes a prefill's q/k/v after the
+    call, and a captured cache page (layer 0 at the longest decode step) is
+    not written again.  A SEARCH's table is a view of the pool's index,
+    which later epochs write, so each (512 x 8 int32, one per admit wave)
+    is copied."""
+
+    def __init__(self):
+        import repro_torch.models.attention as A
+        import repro_torch.serving.kvpool as P
+        self.A, self.P = A, P
+        self.orig = (A.flash_attention, A.paged_attention, P.race_lookup)
+        self.flash = self.paged = None
+        self.races = []
+        self.calls = {"flash_attention": 0, "paged_attention": 0,
+                      "race_lookup": 0}
+
+        def flash_attention(q, k, v, *, causal=True):
+            self.calls["flash_attention"] += 1
+            if self.flash is None or q.numel() > self.flash[0].numel():
+                self.flash = (q, k, v, causal)
+            return self.orig[0](q, k, v, causal=causal)
+
+        def paged_attention(q, kc, vc, valid_len):
+            self.calls["paged_attention"] += 1
+            if self.paged is None or valid_len > self.paged[3]:
+                self.paged = (q, kc, vc, valid_len)
+            return self.orig[1](q, kc, vc, valid_len)
+
+        def race_lookup(keys, table):
+            self.calls["race_lookup"] += 1
+            self.races.append((keys, table.clone()))
+            return self.orig[2](keys, table)
+
+        A.flash_attention, A.paged_attention = flash_attention, paged_attention
+        P.race_lookup = race_lookup
+
+    def close(self):
+        self.A.flash_attention, self.A.paged_attention = self.orig[:2]
+        self.P.race_lookup = self.orig[2]
+
+
+def serve_prompts(rng, vocab: int, n: int = 8, shared: int = 1024,
+                  tail: int = 128):
+    """n prompts: one shared system prompt of ``shared`` tokens, then each
+    request's own ``tail`` tokens."""
+    import numpy as np
+    sys_prompt = rng.integers(0, vocab, shared).astype(np.int32)
+    return [np.concatenate([sys_prompt, rng.integers(0, vocab, tail)
+                            .astype(np.int32)]) for _ in range(n)]
+
+
+def phase_serve(args):
+    """(b) llama3-8b at full width and depth serves 8 requests through the
+    FUSEE prefix-cache pool on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.models import build
+    from repro_torch.serving import PoolConfig, Request, ServeEngine
+    cfg = get("llama3-8b")
+    model = build(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(seed=args.seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    padded = dataclasses.replace(cfg, vocab=model.vocab_p)   # = cfg here
+    check(n_params == padded.n_params(), "llama3-8b parameter count")
+    log(f"[serve] llama3-8b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads, head_dim "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} "
+        f"parameters, {n_bytes} bytes of {model.dtype}, drawn from seed "
+        f"{args.seed} in {time.perf_counter() - t0:.1f} s")
+    eng = ServeEngine(model, params, max_batch=4, max_len=2048,
+                      pool_cfg=PoolConfig(**SERVE_POOL), seed=args.seed)
+    prompts = serve_prompts(np.random.default_rng(args.seed), cfg.vocab)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=16))
+    # warm-up at the run's own shapes (a 4 x 1152 prefill and one decode
+    # step) so that cuBLAS's and the kernels' first-call costs stay out of
+    # the timed window; the counts are set to 0 after it
+    t0 = time.perf_counter()
+    toks = torch.as_tensor(np.stack(prompts[:4]), dtype=torch.int64,
+                           device=model.device)
+    _, cache = model.prefill(params, toks, max_len=2048)
+    model.decode_step(params, cache, toks[:, -1:])
+    torch.cuda.synchronize()
+    del cache
+    log(f"[serve] warm-up (one 4 x 1152 prefill, one decode step): "
+        f"{time.perf_counter() - t0:.3f} s")
+    timing = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timing[name].append(1e3 * (time.perf_counter() - t))
+            return out
+        return run
+
+    model.prefill = timed("prefill", model.prefill)
+    model.decode_step = timed("decode", model.decode_step)
+    capture = ServeCapture()
+    reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run(max_ticks=100)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        capture.close()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    n_pre, n_dec = len(timing["prefill"]), len(timing["decode"])
+    tokens = sum(len(q.out) for q in done)
+    check(len(done) == 8 and all(len(q.out) == 16 for q in done),
+          "serve: not every request finished with 16 tokens")
+    hits = {q.rid: q.prefix_hits for q in done}
+    check(all(hits[r] == 16 for r in range(4, 8)),
+          f"serve: second wave did not hit the 16 shared blocks: {hits}")
+    check(eng.pool.check_replicas_converged(), "serve: replicas diverged")
+    check((n_pre, n_dec) == (2, 30), f"serve: {n_pre} prefills and {n_dec} "
+          "decode steps, expected 2 and 30 with this traffic")
+    check(launches["flash_attention"] == cfg.n_layers * n_pre,
+          f"serve: flash_attention launched {launches['flash_attention']} "
+          f"times for {n_pre} prefills of {cfg.n_layers} layers")
+    check(launches["paged_attention"] == cfg.n_layers * n_dec,
+          f"serve: paged_attention launched {launches['paged_attention']} "
+          f"times for {n_dec} decode steps of {cfg.n_layers} layers")
+    check(launches["race_lookup"] > 0, "serve: no race_lookup launch")
+    check(all(capture.calls[k] == launches[k] for k in capture.calls),
+          f"serve: a kernel wrapper was called without launching: "
+          f"{capture.calls} calls, {launches} launches")
+    st = eng.pool.stats
+    log(f"[serve] 8 requests (1024 shared + 128 own tokens, 16 new each), "
+        f"max_batch 4, max_len 2048, pool {SERVE_POOL}: {tokens} tokens in "
+        f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; {n_pre} prefills "
+        f"({', '.join(f'{t:.1f}' for t in timing['prefill'])} ms), {n_dec} "
+        f"decode steps ({np.mean(timing['decode']):.2f} ms mean, "
+        f"{np.min(timing['decode']):.2f} min, {np.max(timing['decode']):.2f}"
+        f" max); prefix hits {[hits[r] for r in range(8)]}; pool "
+        f"{st['search_batches']} search batches, {st['epochs']} SNAPSHOT "
+        f"epochs; launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    cache = eng.cache["layers"][0][0]
+    log(f"[serve] KV cache pages {tuple(cache.shape)} x2, "
+        f"{2 * cache.numel() * cache.element_size()} bytes")
+    profile_serve(model, params, prompts[4:])
+    return capture, launches
+
+
+def profile_serve(model, params, prompts, steps: int = 4):
+    """One prefill of the served batch and ``steps`` decode steps under
+    ``torch.profiler`` (after the counted run): the device's busy share of
+    each window and its top kernels by device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.as_tensor(np.stack(prompts), dtype=torch.int64,
+                           device=model.device)
+    last = toks[:, -1:]
+
+    def window(name, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kern)
+        kern.sort(key=lambda e: -e.self_device_time_total)
+        top = "; ".join(f"{e.key[:60]} x{e.count} "
+                        f"{e.self_device_time_total / 1e3:.3f} ms"
+                        for e in kern[:6])
+        launches = sum(e.count for e in kern)
+        if not kern:
+            log(f"[profile] {name}: wall {wall_us / 1e3:.2f} ms; the profiler"
+                " recorded no device activity (device busy share not "
+                "measured)")
+            return out
+        log(f"[profile] {name}: wall {wall_us / 1e3:.2f} ms, device busy "
+            f"{busy_us / 1e3:.2f} ms (share {busy_us / wall_us:.3f}, idle "
+            f"{1 - busy_us / wall_us:.3f}), {launches} kernels; top: {top}")
+        return out
+
+    _, cache = window("prefill (4 x 1152 tokens)",
+                      lambda: model.prefill(params, toks, max_len=2048))
+
+    def decode():
+        for _ in range(steps):
+            model.decode_step(params, cache, last)
+
+    window(f"{steps} decode steps", decode)
+
+
+def sdpa(q, k, v, causal):
+    """One PyTorch call computing the same attention (the yardstick)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                          enable_gqa=True)
+
+
+def phase_serve_kernels(capture, launches):
+    """Each kernel held against its plain version on the inputs the serve
+    run gave it (every SEARCH; each attention kernel's largest launch),
+    and each attention kernel timed there beside its byte/FLOP bound and
+    ``scaled_dot_product_attention`` (race_lookup's row is the fleet
+    path's)."""
+    import torch
+    from repro_torch.kernels import (flash_attention, flash_attention_plain,
+                                     paged_attention, paged_attention_plain,
+                                     race_lookup, race_lookup_plain)
+    found = []
+    for keys, table in capture.races:
+        a, b = race_lookup(keys, table), race_lookup_plain(keys, table)
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              "race_lookup differs from its plain version on the serve "
+              "run's inputs")
+        found.append(f"{int(a[1].sum())} of {keys.numel()} keys")
+    check(len(found) == launches["race_lookup"],
+          "serve: a SEARCH was not captured")
+    log(f"[kernels] race_lookup on each of the serve run's "
+        f"{len(found)} SEARCHes (table {tuple(table.shape)}): "
+        f"{', '.join(found)} found; ptr and found equal to the plain "
+        f"version's")
+    rows = []
+    q, k, v, causal = capture.flash
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    out, used, err, typical = check_attn(
+        flash_attention, flash_attention_plain, q, k, v, causal=causal,
+        what="flash_attention on the serve run's inputs")
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), iters=20)
+    dev_ms = device_time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                            iters=20)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
+                       iters=10)
+    lib_err = float((sdpa(q, k, v, causal).float() - out.float()).abs().max())
+    lib_ms = time_ms(lambda: sdpa(q, k, v, causal), iters=20)
+    off = Skv - Sq
+    pairs = (sum(min(Skv, max(0, i + off + 1)) for i in range(Sq))
+             if causal else Sq * Skv)
+    flops = 4 * B * H * hd * pairs
+    nbytes = q.element_size() * (2 * B * H * Sq * hd + 2 * B * KV * Skv * hd)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / MEM_BW_BYTES_PER_S
+    rows.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:70",
+        launches=launches["flash_attention"], max_abs_err=err,
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=lib_ms))
+    log(f"[kernels] flash_attention at the serve run's largest prefill: q "
+        f"{tuple(q.shape)}, k/v {tuple(k.shape)}, {q.dtype}, causal "
+        f"{causal}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
+        f"device), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{lib_ms:.4f} ms (max abs diff {lib_err:.3g}); bound "
+        f"{rows[-1]['bound_ms']:.6f} ms ({flops} FLOP at 989 TFLOP/s bf16, "
+        f"{nbytes} B at 3.35 TB/s); max abs err {err:.3g} (mean |ref| "
+        f"{typical:.3g}, at most {used:.3f} of the bound)")
+
+    q, kc, vc, vl = capture.paged
+    nb, tb, B, KV, hd = kc.shape
+    H = q.shape[1]
+    out, used, err, typical = check_attn(
+        paged_attention, paged_attention_plain, q, kc, vc, vl,
+        what="paged_attention on the serve run's inputs")
+    # a decode step's 32 layers each read their own pages, so every call
+    # finds its pages cold in L2: time over copies that overflow its 50 MB
+    pages = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(5)]
+    views = [tuple(x.view(nb * tb, B, KV, hd)[:vl].permute(1, 2, 0, 3)
+                   for x in kv) for kv in pages]
+    turn = iter(range(1 << 62))
+
+    def cold(fn, sets):
+        return lambda: fn(*sets[next(turn) % len(sets)])
+
+    kernel = cold(lambda a, b: paged_attention(q, a, b, vl), pages)
+    ms = time_ms(kernel)
+    dev_ms = device_time_ms(kernel)
+    plain_ms = time_ms(cold(lambda a, b: paged_attention_plain(q, a, b, vl),
+                            pages), iters=20)
+    qs = q[:, :, None]
+    lib_err = float((sdpa(qs, *views[0], False)[:, :, 0].float()
+                     - out.float()).abs().max())
+    lib_ms = time_ms(cold(lambda a, b: sdpa(qs, a, b, False), views))
+    nbytes = q.element_size() * (2 * B * H * hd + 2 * B * KV * vl * hd)
+    flops = 4 * B * H * hd * vl
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / MEM_BW_BYTES_PER_S
+    rows.append(dict(
+        name="paged_attention", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:58",
+        launches=launches["paged_attention"], max_abs_err=err,
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=lib_ms))
+    log(f"[kernels] paged_attention at the serve run's longest decode step: "
+        f"q {tuple(q.shape)}, pages {tuple(kc.shape)}, {q.dtype}, valid_len "
+        f"{vl}; pages cold in L2 (6 copies in turn): kernel {ms:.4f} ms per "
+        f"call ({dev_ms:.4f} ms on the device), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention "
+        f"{lib_ms:.4f} ms (max abs diff {lib_err:.3g}); byte bound "
+        f"{rows[-1]['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s); max abs "
+        f"err {err:.3g} (mean |ref| {typical:.3g}, at most {used:.3f} of the "
+        f"bound)")
+    return rows
+
+
+def phase_serve_parity(seed: int):
+    """(c) tests/test_serving.py's engine scenario at reduced size in f32
+    (the tests' own definition, ``tests/_torch_parity.py``) on ``cuda`` and
+    on ``cpu`` with the same weights: tokens and prefix hits per request,
+    every prompt block's SEARCH result, replica convergence."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import get, reduced
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import build
+    from _torch_parity import port_serve_run
+    cfg = reduced(get("llama3-8b"))
+    model = build(cfg, device="cuda")
+    params = model.init(seed=seed)
+    before = {k.__name__: k.launches for k in KERNELS}
+    gpu = port_serve_run(model, params)
+    launches = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+    check(all(launches[k] > 0 for k in ("flash_attention", "paged_attention",
+                                        "race_lookup")),
+          f"reduced serve run on cuda skipped a kernel: {launches}")
+    check(gpu["converged"], "reduced serve run on cuda: replicas diverged")
+    cpu = port_serve_run(build(cfg, device="cpu"),
+                         tree_map(lambda t: t.cpu(), params))
+    compare(gpu, cpu, "reduced serve run")
+    log(f"[parity] reduced serve run (f32, same weights): cuda and cpu give "
+        f"equal tokens, prefix hits and per-key SEARCH results "
+        f"{gpu['requests']}; cuda launches {launches}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--keys", type=int, default=100_000)
@@ -670,6 +1134,7 @@ def main(argv=None) -> int:
               "root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    sys.path.insert(0, str(ROOT / "tests"))      # the tests' shared helpers
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -683,9 +1148,11 @@ def main(argv=None) -> int:
         f", CUDA {torch.version.cuda}; nvidia-smi: {smi}")
     dev = torch.device("cuda")
     phase_edge_checks(dev)
+    phase_serve_edge_checks(dev)
     cl, fleet, acked, capture, launches, _stats = phase_fleet(args)
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+    for k in ("race_lookup", "fleet_read"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the fleet "
+              "path")
     check(capture.rl_calls == launches["race_lookup"]
           and capture.fr_calls == launches["fleet_read"],
           "a kernel wrapper was called without launching")
@@ -712,6 +1179,11 @@ def main(argv=None) -> int:
     phase_migration()
     log("[parity] fault run, small fleet run and add_mn run: cuda and cpu "
         "signatures equal (pool bytes, health, history, counters, mn_bytes)")
+    capture, serve_launches = phase_serve(args)
+    rows += phase_serve_kernels(capture, serve_launches)
+    del capture
+    torch.cuda.empty_cache()
+    phase_serve_parity(args.seed)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,0 +1,179 @@
+"""Architecture configuration: frozen ``ArchConfig`` dataclasses, a
+registry, and ``reduced`` for CPU-sized twins.
+
+Counterpart of the JAX package's ``configs/base.py`` (same fields, same
+parameter count, same ``reduced`` rules).  Left out with the dry-run that
+uses them: ``ShapeSpec``, the shape constants and ``cells``; and the
+parameter count of the recurrent families (mamba, xlstm), which wait for
+their models (ROADMAP A9).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import List, Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    dense_residual_d_ff: int = 0   # arctic: parallel always-on dense FFN
+    moe_every: int = 1             # jamba: MoE FFN on every k-th layer
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    # mamba (S6)
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    # xlstm
+    slstm_every: int = 0           # >0: every k-th layer is sLSTM (rest mLSTM)
+    chunk: int = 256               # chunkwise-parallel scan block
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str                    # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 500_000.0
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    attn_every: int = 1            # hybrid: layer i is attention iff
+                                   # (i % attn_every) == attn_phase, else mamba
+    attn_phase: int = 0
+    enc_dec: bool = False          # whisper: encoder-decoder
+    n_enc_layers: int = 0
+    enc_seq: int = 1500            # whisper frame count after conv stub
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    # distribution / memory knobs (overridable per run)
+    remat: str = "block"           # 'none' | 'block' (remat each scanned layer)
+    opt_moments: str = "fp32"      # 'fp32' | 'int8' (8-bit Adam for >100B)
+    attn_chunk_q: int = 1024       # online-softmax query block (train/prefill)
+    attn_chunk_kv: int = 2048      # kv block for decode length-sharding
+    scan_layers: bool = True
+    sub_quadratic: bool = False    # may lower long_500k
+    notes: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    def n_params(self) -> int:
+        """Total parameter count."""
+        return _count_params(self)
+
+
+def _attn_params(cfg: ArchConfig) -> int:
+    hd = cfg.hd
+    q = cfg.d_model * cfg.n_heads * hd
+    kv = 2 * cfg.d_model * cfg.n_kv_heads * hd
+    o = cfg.n_heads * hd * cfg.d_model
+    qknorm = 2 * hd if cfg.qk_norm else 0
+    return q + kv + o + qknorm
+
+
+def _ffn_params(d_model: int, d_ff: int) -> int:
+    return 3 * d_model * d_ff  # gate, up, down (SwiGLU)
+
+
+def _layer_params(cfg: ArchConfig, i: int) -> int:
+    d = cfg.d_model
+    norms = 2 * d
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: parameter count of the {cfg.family} family "
+            "waits for its model (ROADMAP A9)")
+    mix = _attn_params(cfg)
+    if cfg.moe is not None and (i % cfg.moe.moe_every) == (cfg.moe.moe_every - 1):
+        m = cfg.moe
+        ffn = m.n_experts * _ffn_params(d, m.d_ff_expert) + d * m.n_experts
+        ffn += _ffn_params(d, m.dense_residual_d_ff) if m.dense_residual_d_ff else 0
+    elif cfg.d_ff > 0:
+        ffn = _ffn_params(d, cfg.d_ff)
+    else:
+        ffn = 0
+    return mix + ffn + norms
+
+
+def _count_params(cfg: ArchConfig) -> int:
+    total = cfg.vocab * cfg.d_model  # embed
+    if not cfg.tie_embeddings:
+        total += cfg.vocab * cfg.d_model  # lm head
+    total += cfg.d_model  # final norm
+    for i in range(cfg.n_layers):
+        total += _layer_params(cfg, i)
+    if cfg.enc_dec:
+        for i in range(cfg.n_enc_layers):
+            total += _layer_params(cfg, i)
+            total += _attn_params(cfg) + cfg.d_model  # decoder cross-attn+norm
+    return total
+
+
+# ---------------------------------------------------------------------------
+_REGISTRY: dict = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.arch_id] = cfg
+    return cfg
+
+
+def get(arch_id: str) -> ArchConfig:
+    if not _REGISTRY:
+        _load_all()
+    return _REGISTRY[arch_id]
+
+
+def all_archs() -> List[str]:
+    if not _REGISTRY:
+        _load_all()
+    return sorted(_REGISTRY)
+
+
+def _load_all():
+    from . import llama3_8b  # noqa: F401  (the one ported architecture)
+
+
+def reduced(cfg: ArchConfig, *, n_layers: int = 2, d_model: int = 64,
+            vocab: int = 128, d_ff_scale: int = 32) -> ArchConfig:
+    """Tiny same-family config for CPU smoke tests."""
+    n_heads = max(2, min(4, cfg.n_heads))
+    n_kv = max(1, min(n_heads, cfg.n_kv_heads * n_heads // max(1, cfg.n_heads)))
+    while n_heads % n_kv:
+        n_kv -= 1
+    moe = None
+    if cfg.moe is not None:
+        moe = dataclasses.replace(cfg.moe, n_experts=4,
+                                  top_k=min(2, cfg.moe.top_k),
+                                  d_ff_expert=d_ff_scale,
+                                  dense_residual_d_ff=(d_ff_scale if
+                                  cfg.moe.dense_residual_d_ff else 0))
+    ssm = cfg.ssm
+    if ssm is not None:
+        ssm = dataclasses.replace(ssm, d_state=8, chunk=16)
+    # keep at least one full superblock period
+    period = max(cfg.attn_every,
+                 (cfg.ssm.slstm_every if cfg.ssm else 0) or 1, 1)
+    n_layers = max(n_layers, period)
+    n_layers = ((n_layers + period - 1) // period) * period
+    return dataclasses.replace(
+        cfg, arch_id=cfg.arch_id + "-reduced", n_layers=n_layers,
+        d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv,
+        d_ff=(d_ff_scale * 2 if cfg.d_ff else 0), vocab=vocab, head_dim=16,
+        moe=moe, ssm=ssm, n_enc_layers=(n_layers if cfg.enc_dec else 0),
+        enc_seq=24, dtype="float32", attn_chunk_q=16, attn_chunk_kv=32,
+        opt_moments="fp32")

@@ -1,0 +1,108 @@
+"""Forward GQA attention for prefill: the CUDA kernel's wrapper and its
+plain torch version.
+
+``flash_attention(q, k, v, causal=True)`` takes q (B, H, Sq, hd) and k, v
+(B, KV, Skv, hd), all bfloat16 or all float32, and returns (B, H, Sq, hd)
+in q's dtype.  The causal mask is bottom-right aligned, as in the JAX
+package's ``flash_attention_ref``: query i sees key j iff
+``j <= i + Skv - Sq`` (prefill has Sq == Skv).  The tensors' device decides
+the path: CPU tensors take ``flash_attention_plain``; CUDA tensors launch
+``csrc/flash_attention.cu`` (replacing the JAX package's
+``kernels/flash_attention/kernel.py::flash_attention_fwd``) or raise.
+Every kernel launch adds one to ``flash_attention.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import build
+
+__all__ = ["flash_attention", "flash_attention_plain"]
+
+HEAD_DIMS = (16, 128)    # instantiated: llama3-8b and its reduced form
+NEG_INF = -1e30                     # masked score, as in the reference
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """Dense attention in f32 over the full score matrix (the reference's
+    algorithm; the CPU path and the kernel's oracle)."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, Sq, hd).float()
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) * hd ** -0.5
+    if causal:
+        mask = torch.ones(Sq, Skv, dtype=torch.bool,
+                          device=q.device).tril(Skv - Sq)
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
+    return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def _check_inputs(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q must be (B, H, Sq, hd) and k, v "
+                         f"(B, KV, Skv, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, _Sq, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    if k.shape[1] == 0 or H % k.shape[1]:
+        raise ValueError(f"flash_attention: {H} query heads do not group "
+                         f"over {k.shape[1]} kv heads")
+    if k.shape[2] == 0:
+        raise ValueError("flash_attention: no keys (Skv == 0)")
+    if q.dtype not in (torch.bfloat16, torch.float32) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must all be bfloat16 or "
+                        f"all float32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q on {q.device}, k on {k.device}"
+                         f", v on {v.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C entry point of ``csrc/flash_attention.cu``, built and typed on
+    first use."""
+    fn = build.load("flash_attention").flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Forward attention on the inputs' device (see module docstring)."""
+    _check_inputs(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_attention: q, k and v must be 16-byte "
+                         "aligned")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out                              # nothing to launch
+    err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), B, H, KV, Sq, Skv, hd, int(causal),
+                      hd ** -0.5, int(q.dtype == torch.bfloat16),
+                      build.stream_ptr(q.device))
+    build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,113 @@
+"""One-token decode attention over the page-major KV cache: the CUDA
+kernel's wrapper and its plain torch version.
+
+``paged_attention(q, kc, vc, valid_len)`` takes q (B, H, hd) and the FUSEE
+block pool kc, vc (nb, tb, B, KV, hd), all bfloat16 or all float32, and a
+host int ``valid_len`` (1 <= valid_len; positions >= valid_len are masked),
+and returns (B, H, hd) in q's dtype.  Query head h reads KV head
+h // (H / KV).  The tensors' device decides the path: CPU tensors take
+``paged_attention_plain``; CUDA tensors launch ``csrc/paged_attention.cu``
+(replacing the JAX package's
+``kernels/paged_attention/kernel.py::paged_attention_fwd``) or raise.
+Every kernel launch adds one to ``paged_attention.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import build
+
+__all__ = ["paged_attention", "paged_attention_plain"]
+
+HEAD_DIMS = (16, 128)    # instantiated: llama3-8b and its reduced form
+MAX_GROUP = 8                       # query heads per kv head in the kernel
+NEG_INF = -1e30                     # masked score, as in the reference
+
+
+def paged_attention_plain(q: torch.Tensor, kc: torch.Tensor,
+                          vc: torch.Tensor, valid_len: int) -> torch.Tensor:
+    """Dense masked attention in f32 over every cache position (the
+    reference's algorithm; the CPU path and the kernel's oracle)."""
+    nb, tb, B, KV, hd = kc.shape
+    H = q.shape[1]
+    G = H // KV
+    k = kc.float().permute(2, 3, 0, 1, 4).reshape(B, KV, nb * tb, hd)
+    v = vc.float().permute(2, 3, 0, 1, 4).reshape(B, KV, nb * tb, hd)
+    qg = q.float().reshape(B, KV, G, hd)
+    s = torch.einsum("bkgd,bktd->bkgt", qg, k) * hd ** -0.5
+    mask = torch.arange(nb * tb, device=q.device) < valid_len
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,bktd->bkgd", p, v)
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
+def _check_inputs(q, kc, vc, valid_len):
+    if q.dim() != 3 or kc.dim() != 5 or vc.shape != kc.shape:
+        raise ValueError(f"paged_attention: q must be (B, H, hd) and kc, vc "
+                         f"(nb, tb, B, KV, hd); got {tuple(q.shape)}, "
+                         f"{tuple(kc.shape)}, {tuple(vc.shape)}")
+    nb, tb, B, KV, hd = kc.shape
+    if q.shape[0] != B or q.shape[2] != hd:
+        raise ValueError(f"paged_attention: kc {tuple(kc.shape)} does not "
+                         f"match q {tuple(q.shape)}")
+    if KV == 0 or q.shape[1] % KV:
+        raise ValueError(f"paged_attention: {q.shape[1]} query heads do not "
+                         f"group over {KV} kv heads")
+    if not 1 <= int(valid_len):
+        raise ValueError(f"paged_attention: valid_len {valid_len} < 1")
+    if q.dtype not in (torch.bfloat16, torch.float32) or \
+            kc.dtype != q.dtype or vc.dtype != q.dtype:
+        raise TypeError(f"paged_attention: q, kc, vc must all be bfloat16 or "
+                        f"all float32, got {q.dtype}, {kc.dtype}, {vc.dtype}")
+    if kc.device != q.device or vc.device != q.device:
+        raise ValueError(f"paged_attention: q on {q.device}, kc on "
+                         f"{kc.device}, vc on {vc.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C entry point of ``csrc/paged_attention.cu``, built and typed on
+    first use."""
+    fn = build.load("paged_attention").paged_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                    valid_len: int) -> torch.Tensor:
+    """Decode attention on the inputs' device (see module docstring)."""
+    _check_inputs(q, kc, vc, valid_len)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, kc, vc, valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    nb, tb, B, KV, hd = kc.shape
+    H = q.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"paged_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if H // KV > MAX_GROUP:
+        raise ValueError(f"paged_attention: {H // KV} query heads per kv "
+                         f"head, the kernel takes at most {MAX_GROUP}")
+    q, kc, vc = q.contiguous(), kc.contiguous(), vc.contiguous()
+    if kc.data_ptr() % 16 or vc.data_ptr() % 16:
+        raise ValueError("paged_attention: kc and vc must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out                              # nothing to launch
+    err = _launcher()(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                      out.data_ptr(), B, H, KV, hd,
+                      min(int(valid_len), nb * tb), hd ** -0.5,
+                      int(q.dtype == torch.bfloat16),
+                      build.stream_ptr(q.device))
+    build.check(err, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

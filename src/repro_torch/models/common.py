@@ -1,0 +1,102 @@
+"""Shared model components: parameter init, RMSNorm, RoPE, embeddings, the
+LM head, dtype policy.
+
+Parameters are plain nested dicts of tensors in the JAX package's layout
+(``models/convert.py`` maps its trees over one to one).  Init draws from an
+explicit ``torch.Generator`` on the parameters' device, so a model's
+weights are a function of its seed; they are not the JAX package's draws
+(``jax.random`` and torch give different numbers from one seed).
+
+Counterpart of the JAX package's ``models/common.py``; the logical-axes
+bookkeeping for sharding has no single-card use and is left out.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+class ParamInit:
+    """Draws parameters of one dtype on one device from a seeded
+    generator, with the JAX package's init rules (normal with std
+    ``scale / sqrt(fan_in)``, ones, zeros, scaled-normal embeddings)."""
+
+    def __init__(self, generator: torch.Generator, dtype: torch.dtype,
+                 device: torch.device):
+        self.gen = generator
+        self.dtype = dtype
+        self.device = device
+
+    def param(self, shape: Sequence[int], init: str = "normal",
+              scale: float = 1.0, fan_in: Optional[int] = None):
+        shape = tuple(shape)
+        if init == "ones":
+            return torch.ones(shape, dtype=self.dtype, device=self.device)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if init == "normal":
+            if fan_in is None:
+                fan_in = shape[-2] if len(shape) > 1 else max(shape[0], 1)
+            std = scale / math.sqrt(fan_in)
+        elif init == "embed":
+            std = scale
+        else:
+            raise ValueError(init)
+        val = torch.randn(shape, generator=self.gen, dtype=torch.float32,
+                          device=self.device)
+        return val.mul_(std).to(self.dtype)
+
+
+# ---------------------------------------------------------------- numerics --
+def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * gain.float()).to(dt)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions: (...,) int -> cos/sin of shape (..., head_dim//2), f32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x: (..., seq, heads, head_dim); cos/sin: (..., seq, hd//2)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- embeddings --
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]
+
+
+def lm_head(x: torch.Tensor, table: torch.Tensor, transpose: bool):
+    """x: (B,S,D) -> logits (B,S,Vp) in f32.  The product runs in x's dtype
+    with f32 accumulation (cuBLAS and the CPU's bf16 GEMMs accumulate in
+    f32); bf16 logits are widened after rounding."""
+    w = table.to(x.dtype)
+    if transpose:
+        return torch.einsum("bsd,vd->bsv", x, w).float()
+    return torch.einsum("bsd,dv->bsv", x, w).float()

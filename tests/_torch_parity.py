@@ -7,7 +7,6 @@ packages only as numpy arrays and plain dicts.
 import dataclasses
 
 import numpy as np
-import pytest
 import torch
 
 
@@ -15,6 +14,7 @@ def require_cuda():
     """Skip the calling test unless a CUDA device is present (decided at
     run time, never at import: every xdist worker collects the same
     tests)."""
+    import pytest
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the port's kernels have no "
                     "interpret mode")
@@ -142,3 +142,67 @@ def signature(cl, fleet=None) -> dict:
 def assert_same_run(ref, port):
     for k in ref:
         assert ref[k] == port[k], f"port/reference divergence in {k}"
+
+
+# ------------------------------------------------------------ attention
+def attn_bound(want, spread):
+    """Per-element bound on |kernel - plain| for an attention output.
+    ``want`` is the plain version's output and ``spread`` the plain version
+    run on |v| (each row's weighted mean of |v|).  float32: 2e-5 + 2e-5 x
+    |want| (summation order).  bfloat16: 2^-7 x |want| + 2^-8 x spread: both
+    outputs are rounded to bf16, and one unit in the last place is at most
+    2^-7 of the value; a kernel may round each attention weight to bf16
+    before P.V, which moves the output by at most 2^-9 of the weighted mean
+    of |v| (allowed twice).  ``chip_smoke.py`` uses it too."""
+    w = want.float().abs()
+    if want.dtype == torch.float32:
+        return 2e-5 + 2e-5 * w
+    return 2 ** -7 * w + 2 ** -8 * spread.float()
+
+
+def uniform_attn_inputs(q, v):
+    """Inputs whose attention weights are exact in bfloat16: q = 0 (every
+    visible key weighs 1) and v = +-1 from the sign of ``v``.  Each output
+    is then (sum of +-1 over the visible keys) / their count, so one key
+    too many or too few in a row moves it by about 1/count, far above the
+    bound 1e-4 + 2^-7 x |want| that rounding needs."""
+    return torch.zeros_like(q), torch.where(v < 0, -1.0, 1.0).to(v.dtype)
+
+
+# ------------------------------------------------------------ serving
+def serve_scenario(Eng, Req, Pool, block_hashes, model, params):
+    """tests/test_serving.py's engine scenario: 4 requests sharing a
+    64-token prefix, max_batch 2, max_len 128.  Takes either package's
+    engine, request, pool config and ``_block_hashes``; returns the engine,
+    the finished requests and the SEARCH result of every prompt block.
+    ``chip_smoke.py`` runs it too (the reduced cuda-vs-cpu check)."""
+    eng = Eng(model, params, max_batch=2, max_len=128,
+              pool_cfg=Pool(n_pages=256, n_buckets=64, slots_per_bucket=4))
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, 128, 64).astype(np.int32)
+    prompts = []
+    for i in range(4):
+        tail = rng.integers(0, 128, 16).astype(np.int32)
+        prompts.append(np.concatenate([shared, tail]))
+        eng.submit(Req(rid=i, prompt=prompts[-1], max_new=4))
+    done = eng.run(max_ticks=60)
+    keys = np.concatenate([block_hashes(p) for p in prompts])
+    return eng, done, eng.pool.search(keys)
+
+
+def serve_signature(eng, done, search) -> dict:
+    """What two runs of ``serve_scenario`` must agree on: each request's
+    tokens and prefix hits, every prompt block's SEARCH result, and whether
+    the index replicas converged."""
+    return {"requests": [(q.rid, list(q.out), q.prefix_hits) for q in done],
+            "search": (np.asarray(search[0]).tolist(),
+                       np.asarray(search[1]).tolist()),
+            "converged": eng.pool.check_replicas_converged()}
+
+
+def port_serve_run(model, params) -> dict:
+    """``serve_scenario`` on the port, as its ``serve_signature``."""
+    from repro_torch.serving import PoolConfig, Request, ServeEngine
+    from repro_torch.serving.engine import _block_hashes
+    return serve_signature(*serve_scenario(ServeEngine, Request, PoolConfig,
+                                           _block_hashes, model, params))

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain torch version,
-and a seeded fleet run and fault run on ``cuda`` against the same runs on
-``cpu``.  Every test is marked ``cuda`` and skips without a GPU.
+and a seeded fleet run, fault run and serving run on ``cuda`` against the
+same runs on ``cpu``.  Every test is marked ``cuda`` and skips without a
+GPU.
 
 This file imports neither ``jax`` nor the JAX package, so it also runs on
 a GPU machine that has only PyTorch:
@@ -13,10 +14,13 @@ import torch
 
 import repro_torch.core as T
 from repro_torch.core.shadow import build_shadow
-from repro_torch.kernels import (fleet_read, fleet_read_plain, race_lookup,
-                                 race_lookup_plain)
+from repro_torch.kernels import (flash_attention, flash_attention_plain,
+                                 fleet_read, fleet_read_plain,
+                                 paged_attention, paged_attention_plain,
+                                 race_lookup, race_lookup_plain)
 
-from _torch_parity import assert_same_run, require_cuda, signature
+from _torch_parity import (assert_same_run, attn_bound, port_serve_run,
+                           require_cuda, signature, uniform_attn_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -186,3 +190,128 @@ def test_fault_run_on_cuda_matches_cpu():
     h = gpu.health()
     assert h.mn_recoveries == 1 and h.client_recoveries == 1
     assert_same_run(signature(_fault_run("cpu")), signature(gpu))
+
+
+# ------------------------------------------------------- attention kernels
+def _assert_attn_close(got, want, spread):
+    """Within ``attn_bound`` (2e-5 in f32; one bf16 rounding of the output
+    and of each attention weight in bf16) of the plain version."""
+    err = (got.float() - want.float()).abs()
+    bound = attn_bound(want, spread)
+    assert bool((err <= bound).all()), \
+        f"max err {err.max().item():.3g}, worst excess " \
+        f"{(err - bound).max().item():.3g}, mean |ref| " \
+        f"{want.float().abs().mean().item():.3g}"
+
+
+def _randn(rng, shape, dt):
+    return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                        device="cuda").to(dt)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,hd,causal", [
+    (2, 4, 2, 256, 256, 16, True),
+    (1, 8, 8, 512, 512, 128, True),
+    (2, 6, 2, 256, 512, 16, False),
+    (3, 3, 3, 128, 256, 128, False),
+    (1, 4, 1, 1, 1, 128, True),
+    (2, 4, 4, 63, 63, 16, True),
+    (1, 8, 2, 65, 65, 16, True),
+    (1, 8, 2, 300, 300, 128, True),
+    (1, 4, 1, 100, 37, 128, False),
+    (1, 4, 1, 70, 30, 16, True),        # rows with no visible key
+])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(B, H, KV, Sq, Skv, hd, causal,
+                                              dt):
+    require_cuda()
+    rng = np.random.default_rng(Sq * 7 + Skv)
+    q = _randn(rng, (B, H, Sq, hd), dt)
+    k = _randn(rng, (B, KV, Skv, hd), dt)
+    v = _randn(rng, (B, KV, Skv, hd), dt)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    _assert_attn_close(got, want,
+                       flash_attention_plain(q, k, v.abs(), causal=causal))
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", [
+    (65, 65, True), (300, 300, True), (1152, 1152, True), (65, 300, False),
+])
+def test_flash_attention_bf16_kernel_masks_to_the_key(Sq, Skv, causal):
+    """With attention weights exact in bf16, the bf16 kernel equals the
+    plain version to one rounding: one key too many or too few in a row
+    would show."""
+    require_cuda()
+    rng = np.random.default_rng(Sq + Skv)
+    q, v = uniform_attn_inputs(
+        _randn(rng, (1, 4, Sq, 128), torch.bfloat16),
+        _randn(rng, (1, 1, Skv, 128), torch.bfloat16))
+    k = _randn(rng, (1, 1, Skv, 128), torch.bfloat16)
+    got = flash_attention(q, k, v, causal=causal).float()
+    want = flash_attention_plain(q, k, v, causal=causal).float()
+    assert bool(((got - want).abs() <= 1e-4 + 2 ** -7 * want.abs()).all())
+
+
+def test_flash_attention_kernel_raises_on_unsupported_head_dim():
+    require_cuda()
+    q = torch.zeros(1, 2, 8, 64, device="cuda")
+    before = flash_attention.launches
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :1], q[:, :1])
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("nb,tb,B,KV,H,hd,vl", [
+    (4, 128, 2, 2, 4, 16, 300),
+    (8, 256, 1, 8, 8, 128, 2000),
+    (2, 128, 3, 1, 2, 16, 17),
+    (16, 128, 1, 4, 8, 128, 2048),
+    (2, 1024, 4, 8, 32, 128, 1),
+    (2, 1024, 4, 8, 32, 128, 1023),
+    (2, 1024, 4, 8, 32, 128, 1025),
+    (2, 64, 2, 1, 4, 16, 128),
+    (2, 64, 2, 1, 4, 16, 500),          # valid_len past the pages: clamped
+])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_matches_plain(nb, tb, B, KV, H, hd, vl, dt):
+    require_cuda()
+    rng = np.random.default_rng(nb * 31 + B + vl)
+    q = _randn(rng, (B, H, hd), dt)
+    kc = _randn(rng, (nb, tb, B, KV, hd), dt)
+    vc = _randn(rng, (nb, tb, B, KV, hd), dt)
+    before = paged_attention.launches
+    got = paged_attention(q, kc, vc, vl)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = paged_attention_plain(q, kc, vc, vl)
+    _assert_attn_close(got, want, paged_attention_plain(q, kc, vc.abs(), vl))
+    if vl < nb * tb:                    # garbage past valid_len is unread
+        kc[vl // tb + 1:] = 999.0
+        vc.view(nb * tb, B, KV, hd)[vl:] = float("nan")
+        torch.testing.assert_close(paged_attention(q, kc, vc, vl), got)
+
+
+def test_serve_run_on_cuda_matches_cpu():
+    """The reduced f32 engine scenario on the card launches both attention
+    kernels and equals the same run on the CPU with the same weights."""
+    require_cuda()
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs.base import get, reduced
+    from repro_torch.models import build
+    cfg = reduced(get("llama3-8b"))
+    model = build(cfg, device="cuda")
+    params = model.init(seed=0)
+    before = (flash_attention.launches, paged_attention.launches,
+              race_lookup.launches)
+    gpu = port_serve_run(model, params)
+    assert flash_attention.launches > before[0]
+    assert paged_attention.launches > before[1]
+    assert race_lookup.launches > before[2]
+    assert gpu["converged"]
+    assert sum(hits for _r, _o, hits in gpu["requests"]) >= 2
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    assert port_serve_run(build(cfg, device="cpu"), cpu_params) == gpu

@@ -22,7 +22,8 @@ from repro.kernels.fleet_tick.ref import fleet_read_ref
 from repro.kernels.race_lookup.kernel import race_lookup_fwd
 from repro.kernels.race_lookup.ref import race_lookup_ref
 from repro_torch.core import shadow as port_shadow
-from repro_torch.kernels import (KERNELS, fleet_read, fleet_read_plain,
+from repro_torch.kernels import (KERNELS, flash_attention, fleet_read,
+                                 fleet_read_plain, paged_attention,
                                  race_lookup, race_lookup_plain,
                                  reset_launches)
 
@@ -109,7 +110,8 @@ def test_race_lookup_wrapper_cpu_path_launches_nothing():
     ptr, found = race_lookup(keys, table)
     assert found.all()
     assert race_lookup.launches == 0 and fleet_read.launches == 0
-    assert set(KERNELS) == {race_lookup, fleet_read}
+    assert set(KERNELS) == {race_lookup, fleet_read, flash_attention,
+                            paged_attention}
     with pytest.raises(TypeError):
         race_lookup(keys.to(torch.int32), table)
     with pytest.raises(ValueError):
