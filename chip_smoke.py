@@ -10,7 +10,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
 1. prints the card's name and power limit as ``nvidia-smi`` reports them;
 2. holds each kernel bit for bit against its plain PyTorch version on edge
    inputs (keys 0, 2^31 and 2^32-1; slab words >= 2^63 and at the 32-bit
-   boundary; zero-length and ragged read verbs);
+   boundary; zero-length and ragged read verbs; for ``leaf_probe`` starts
+   and fence lows at 0, 2^31, 2^32-1, 2^32, 2^63-1, 2^63 and 2^64-2,
+   duplicate lows, M = 0, 1 and 40 000, N = 1, 1000 and 4097);
 3. drives the store at the paper's scale (``configs/fusee_paper.py``: 5 MNs,
    replication 2, 100 000 keys, 1 KiB KV pairs, zipf 0.99) with 1024
    clients through ``FleetEngine.submit_wave``: a preload, then YCSB-A, then
@@ -20,6 +22,26 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
 4. audits the drained store: every acknowledged write reads back through GET
    with a value that may legally be last, and every key's index slot is
    identical on both replicas;
+4b. runs YCSB-E over the ordered keydir on a cluster of its own (the same
+   testbed with ``ordered_index=True``, sized for 100 000 keys, 1024
+   clients): YCSB's load phase (``--e-keys`` keys, 40 000 by default, in
+   hashed order, closed loop at 4 in flight per client), then 16 ops per client at depth 4 — 95% SCAN (zipf start,
+   length 1..100), 5% INSERT of fresh keys.  The counts are set to 0
+   before the load; ``leaf_probe`` and ``fleet_read`` must launch.  The
+   audit (``tests/_torch_parity.py::ycsbe_audit``): every OK scan sorted,
+   deduplicated and >= its start, and inside the loaded keys exactly the
+   keydir's next keys with their values; the keydir holds no unacknowledged
+   key and misses exactly as many acknowledged keys as the clients report
+   dropped (``ord_full_drops``: the keydir protocol's losses, which
+   ``tests/test_torch_ordered.py`` holds to the JAX package's; printed with
+   the NOT_FOUND scans); the keydir replicas equal.  ``leaf_probe`` is then
+   checked and timed on the run's largest locate wave beside
+   ``torch.searchsorted``;
+4c. runs ``tests/_torch_parity.py``'s small YCSB-E runs on ``cuda`` and on
+   ``cpu``: one with a client crashed inside a leaf split (equal
+   signatures, its audit on the card), and 4b's traffic at 64 clients and
+   500 keys, where the keydir drops inserts (equal results, audits and
+   signatures);
 5. runs a small step-mode fault scenario (client crash, MN crash,
    auto-recovery, client recovery) on the card;
 6. runs the same small seeded fleet run and fault scenario on ``cuda`` and on
@@ -43,11 +65,13 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    tokens, second-wave prefix hits and replica convergence, then holds each
    kernel against its plain version on the largest inputs the run gave it
    (``race_lookup``: equal ptr and found) and times each attention kernel
-   there, beside ``scaled_dot_product_attention``;
+   there, beside ``scaled_dot_product_attention``; ``list_prefixes(0, 64)``
+   must return the sorted block-hash keys that SEARCH finds, through one
+   ``leaf_probe`` launch held against the plain version;
 10. runs the engine scenario of ``tests/test_serving.py`` at reduced size in
    f32 (as defined in ``tests/_torch_parity.py``) on ``cuda`` and on
-   ``cpu`` with the same weights and requires equal tokens, prefix hits
-   and per-key SEARCH results.
+   ``cpu`` with the same weights and requires equal tokens, prefix hits,
+   per-key SEARCH results and prefix listings.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -80,34 +104,35 @@ def log(msg: str):
 
 
 # ------------------------------------------------------------------ helpers
-def zipf_keys(n_keys: int, theta: float, size: int, rng):
-    import numpy as np
-    ranks = np.arange(1, n_keys + 1, dtype=np.float64)
-    p = ranks ** (-theta)
-    p /= p.sum()
-    return rng.choice(n_keys, size=size, p=p)
-
-
 def fleet_dmconfig(n_clients: int, n_keys: int, *, n_mns: int,
-                   replication: int, objects: int = 0, obj_words: int = 8):
+                   replication: int, objects: int = 0, obj_words: int = 8,
+                   ordered: bool = False):
     """DMConfig sized for a fleet run: index slots >= 4x keys, a meta region
-    covering every client's 64 words, >= 4 blocks of headroom per client
-    (the JAX package's ``benchmarks/common.py::fleet_dmconfig`` rules), and
-    data regions that hold at least 1.5x the ``objects`` of ``obj_words``
-    words the run writes."""
+    covering every client's 64 words, >= 4 blocks of headroom per client,
+    and with ``ordered`` the keydir region (every region raised until
+    4·keys/13 + 4·clients + 64 leaves of 16 words fit) — the JAX package's
+    ``benchmarks/common.py::fleet_dmconfig`` rules — and data regions that
+    hold at least 1.5x the ``objects`` of ``obj_words`` words the run
+    writes."""
     from repro_torch.core import DMConfig
+    from repro_torch.core.ordered import LEAF_ENTRIES, LEAF_WORDS
     buckets = 256
     while buckets * 7 < 4 * n_keys:
         buckets *= 2
     region_words = 1 << 14
     while region_words < max(buckets * 7, n_clients * 64):
         region_words <<= 1
+    if ordered:
+        need_leaves = 4 * n_keys // LEAF_ENTRIES + 4 * n_clients + 64
+        while region_words < need_leaves * LEAF_WORDS + 8:
+            region_words <<= 1
     block_words = 1 << 9
     bpr = region_words // (block_words + 1)
     regions_per_mn = max(8, -(-4 * n_clients // (bpr * n_mns)) + 1)
     cfg = DMConfig(num_mns=n_mns, replication=replication,
                    region_words=region_words, block_words=block_words,
-                   regions_per_mn=regions_per_mn, index_buckets=buckets)
+                   regions_per_mn=regions_per_mn, index_buckets=buckets,
+                   ordered_index=ordered)
     if objects:
         per_block = cfg.block_payload_words // obj_words
         # one partly filled block per client on top of the packed ones
@@ -150,29 +175,6 @@ def device_time_ms(fn, iters: int = 50) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def drive_waves(fleet, backends, plans, depth: int = 4) -> int:
-    """Closed loop: refill every client to ``depth`` in-flight ops through
-    ``submit_wave``, tick the fleet until the plans drain."""
-    sched = fleet.sched
-    cursor = [0] * len(plans)
-    futs = []
-    while True:
-        wave = []
-        for c, plan in enumerate(plans):
-            room = depth - sched.inflight(c)
-            if room > 0 and cursor[c] < len(plan):
-                ops = plan[cursor[c]:cursor[c] + room]
-                cursor[c] += len(ops)
-                wave.append((backends[c], ops))
-        if wave:
-            for fs in fleet.submit_wave(wave):
-                futs.extend(fs)
-        if not sched.has_work():
-            break
-        fleet.tick()
-    return futs
-
-
 # ------------------------------------------------------------- signatures
 def pool_bytes(cl) -> bytes:
     return b"".join(mn.regions[g].cpu().numpy().tobytes()
@@ -204,6 +206,7 @@ def signature(cl, fleet=None):
 def small_fleet_run(device: str, seed: int = 3):
     """24 clients, 64 keys: preload, then YCSB-A through submit_wave."""
     import numpy as np
+    from _torch_parity import drive_waves
     from repro_torch.core import FuseeCluster, Op
     n_clients, n_keys = 24, 64
     cfg = fleet_dmconfig(n_clients, n_keys, n_mns=4, replication=2)
@@ -399,6 +402,51 @@ def phase_edge_checks(dev):
         "plain versions bit for bit")
 
 
+LEAF_EDGES = [0, 1 << 31, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63,
+              (1 << 64) - 2]
+
+
+def phase_leaf_probe_edges(dev):
+    """leaf_probe against its plain version, bit for bit, on the card:
+    starts and lows at the 32- and 64-bit boundaries, duplicate lows,
+    M = 0, 1 and 40 000, N = 1, 1000 and 4097."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import leaf_probe, leaf_probe_plain
+    rng = np.random.default_rng(1)
+    edges = np.array(LEAF_EDGES, np.uint64)
+    cases = 0
+    for m in (0, 1, 40_000):
+        lows = np.concatenate([rng.choice(edges, min(m, 7)),
+                               rng.integers(0, 1 << 64, max(m - 7, 0),
+                                            dtype=np.uint64)])
+        if m > 7:
+            lows[100:140] = lows[100]                 # a run of duplicates
+        lows = np.sort(lows)
+        for n in (1, 1000, 4097):
+            starts = np.concatenate([edges, edges - np.uint64(1), lows[:64],
+                                     rng.integers(0, 1 << 64, n,
+                                                  dtype=np.uint64)])[:n]
+            st = torch.from_numpy(starts.view(np.int64)).to(dev)
+            lw = torch.from_numpy(lows.view(np.int64)).to(dev)
+            got = leaf_probe(st, lw)
+            want = leaf_probe_plain(st, lw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"leaf_probe differs from its "
+                  f"plain version at N={n}, M={m}")
+            host = np.searchsorted(lows, starts, side="right") - 1
+            check(np.array_equal(got.cpu().numpy(), host),
+                  f"leaf_probe differs from the host searchsorted at N={n}, "
+                  f"M={m}")
+            if m == 0:
+                check(bool((got == -1).all()), "leaf_probe with no lows")
+            cases += 1
+    log(f"[kernels] edge checks: leaf_probe equals its plain version bit for "
+        f"bit in {cases} cases (starts and lows at 0, 2^31, 2^32-1, 2^32, "
+        f"2^63-1, 2^63, 2^64-2; duplicate lows; M = 0, 1, 40000; N = 1, "
+        f"1000, 4097)")
+
+
 class Capture:
     """Keeps the largest inputs each kernel's wrapper saw during the main
     path (for the checks and timings at the path's own shapes).  It holds
@@ -437,6 +485,7 @@ class Capture:
 def phase_fleet(args, device="cuda"):
     import numpy as np
     import torch
+    from _torch_parity import drive_waves, zipf_keys
     from repro_torch.configs import FuseePaperConfig
     from repro_torch.core import FuseeCluster, Op
     from repro_torch.kernels import KERNELS, reset_launches
@@ -617,6 +666,7 @@ def phase_kernel_timings(cl, capture, launches):
 
 def phase_audit(cl, fleet, acked):
     import torch
+    from _torch_parity import drive_waves
     from repro_torch.core import Op
     n_clients = len(cl.clients)
     keys = sorted(acked)
@@ -645,6 +695,238 @@ def phase_audit(cl, fleet, acked):
     reps = [pool.placement[g] for g in pool.index_regions]
     log(f"[audit] {len(futs)} keys read back their last acked write; index "
         f"slots identical on replicas {reps}")
+
+
+# ------------------------------------------------------- YCSB-E (keydir)
+class LeafCapture:
+    """Keeps the largest ``leaf_probe`` inputs of the YCSB-E run (its
+    largest locate wave) by reference — the port builds new starts and lows
+    tensors for every call and never writes them afterwards — and counts
+    the wrapper's calls."""
+
+    def __init__(self):
+        import repro_torch.core.ordered as O
+        self.O, self.orig = O, O.leaf_probe
+        self.big = None
+        self.calls = 0
+
+        def leaf_probe(starts, lows):
+            self.calls += 1
+            if self.big is None or starts.numel() > self.big[0].numel():
+                self.big = (starts, lows)
+            return self.orig(starts, lows)
+
+        O.leaf_probe = leaf_probe
+
+    def close(self):
+        self.O.leaf_probe = self.orig
+
+
+def _profile_delta(fleet, before):
+    """``tick_phase_profile()`` split of the ticks since ``before``."""
+    names = ("coord_build", "sweep", "scatter", "bookkeeping")
+    now = fleet.tick_phase_profile()
+    d = {k: now[k] - before[k] for k in names}
+    total = sum(d.values())
+    ticks = now["ticks"] - before["ticks"]
+    return (", ".join(f"{k} {d[k] / total:.3f}" for k in names)
+            + f" of {1e6 * total / max(ticks, 1):.0f} us per tick")
+
+
+def phase_ycsbe(args, device="cuda"):
+    """YCSB-E over the ordered keydir at the paper's cluster: a preload,
+    then 95% SCAN (zipf start, length 1..100) / 5% INSERT of fresh keys.
+    Returns the cluster, the leaf_probe capture and the launch counts."""
+    import torch
+    import repro_torch.core as T
+    from _torch_parity import (drive_waves, ycsbe_audit, ycsbe_load_plans,
+                               ycsbe_plans)
+    from repro_torch.configs import FuseePaperConfig
+    from repro_torch.core import FuseeCluster, Op, ordered
+    from repro_torch.core.heap import get_word
+    from repro_torch.kernels import KERNELS, reset_launches
+    paper = FuseePaperConfig()
+    n_keys, n_clients = args.e_keys, args.clients
+    vw, opc = args.value_words, args.ops_per_client
+    if n_keys != paper.ycsb_keys:
+        log(f"[ycsbe] cut: a load of {n_keys} keys instead of the paper's "
+            f"{paper.ycsb_keys}, on a cluster sized for {paper.ycsb_keys}")
+    n_ops = n_clients * opc
+    # the deployment is provisioned for the paper's key space whatever the
+    # load: the keydir's region size decides how its protocol fails
+    cfg = fleet_dmconfig(n_clients, paper.ycsb_keys, n_mns=paper.num_mns,
+                         replication=paper.replication,
+                         objects=paper.ycsb_keys + n_ops, obj_words=128,
+                         ordered=True)
+    cl = FuseeCluster(cfg, num_clients=n_clients, seed=args.seed,
+                      device=device)
+    pool = cl.pool
+    g = pool.ordered_regions[0]
+    slab_bytes = pool.slab.buf.numel() * pool.slab.buf.element_size()
+    log(f"[ycsbe] {paper.num_mns} MNs, replication {paper.replication}, "
+        f"{n_keys} keys, {vw}-word values, zipf {paper.zipf_theta}, "
+        f"{n_clients} clients, ordered keydir region {g} of "
+        f"{cfg.region_words} words ({ordered.max_leaves(cfg.region_words)} "
+        f"leaves); regions_per_mn {cfg.regions_per_mn}; slab "
+        f"{slab_bytes} bytes ({slab_bytes / 2**30:.3f} GiB)")
+    fleet = cl.fleet()
+    backends = [cl.store(c, max_inflight=0).backend for c in range(n_clients)]
+    tag = iter(range(1, 1 << 62))
+    values = {}
+
+    def insert(key):
+        v = [next(tag)] + [key] * (vw - 1)
+        values[key] = v
+        return Op.insert(key, v)
+
+    capture = LeafCapture()
+    reset_launches()
+    try:
+        sync = torch.cuda.synchronize
+        sync()
+        t0 = time.perf_counter()
+        pre = drive_waves(fleet, backends, ycsbe_load_plans(
+            n_keys, n_clients, args.seed, insert))
+        sync()
+        dt = time.perf_counter() - t0
+        pre_ticks = fleet.stats()["ticks"]
+        pre_drops = sum(c.ord_full_drops for c in cl.clients.values())
+        log(f"[ycsbe] preload: {len(pre)} inserts in hashed key order, "
+            f"closed loop at 4 in flight per client, {pre_ticks} ticks, "
+            f"{dt:.2f} s, {len(pre) / dt:.0f} ops/s; {pre_drops} inserts "
+            f"dropped from the keydir (ord_full_drops), "
+            f"{get_word(pool.mns[pool.placement[g][0]].regions[g], 0)} leaves "
+            f"allocated; host time per tick "
+            + _profile_delta(fleet, {k: 0.0 for k in (
+                "coord_build", "sweep", "scatter", "bookkeeping", "ticks")}))
+        prof0 = fleet.tick_phase_profile()
+        plans, n_scans = ycsbe_plans(T, cl.rng.stream("workload"), n_keys,
+                                     n_clients, opc, insert,
+                                     theta=paper.zipf_theta)
+        loc0 = fleet.stats()["scan_locate_invocations"]
+        sync()
+        t0 = time.perf_counter()
+        futs = drive_waves(fleet, backends, plans)
+        sync()
+        dt = time.perf_counter() - t0
+    finally:
+        capture.close()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    st = fleet.stats()
+    ticks = st["ticks"] - pre_ticks
+    e_drops = sum(c.ord_full_drops for c in cl.clients.values()) - pre_drops
+    log(f"[ycsbe] YCSB-E: {len(futs)} ops ({n_scans} scans, "
+        f"{n_ops - n_scans} inserts, {e_drops} of them dropped "
+        f"from the keydir) in {ticks} ticks, "
+        f"{dt:.2f} s, {len(futs) / dt:.0f} ops/s; locate waves "
+        f"{st['scan_locate_invocations'] - loc0} ({st['scan_locate_keys']} "
+        f"starts), leaf verbs {st['ord_leaf_verbs']}; host "
+        f"time per tick " + _profile_delta(fleet, prof0))
+    log(f"[ycsbe] kernel launches over preload and run: {launches}")
+    for k in ("leaf_probe", "fleet_read"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the YCSB-E "
+              "path")
+    check(capture.calls == launches["leaf_probe"],
+          "leaf_probe was called without launching")
+    a = ycsbe_audit(T, cl, n_keys, values, pre + futs)
+    log(f"[audit] ycsbe: results {a['results']}; {a['scans_ok']} OK scans "
+        f"sorted, deduplicated and >= start, {a['scans_exact']} of them "
+        f"inside the preloaded keys equal to the keydir's next keys and "
+        f"their values; keydir {a['keydir']} keys = {a['acked']} "
+        f"acknowledged - {a['dropped']} dropped (ord_full_drops "
+        f"{a['drops']}, {100 * a['dropped'] / max(a['acked'], 1):.2f}%); "
+        f"{a['not_found']} scans NOT_FOUND; keydir replicas "
+        f"{pool.placement[g]} identical")
+    return cl, capture, launches
+
+
+def leaf_probe_row(capture, launches):
+    """leaf_probe held against its plain version and timed on the largest
+    wave of the YCSB-E run, beside ``torch.searchsorted`` on the
+    sign-flipped words (the library yardstick, never used by the port)."""
+    import torch
+    from repro_torch.kernels import leaf_probe, leaf_probe_plain
+    from repro_torch.kernels.leaf_probe.ops import flip_sign
+    starts, lows = capture.big
+    got = leaf_probe(starts, lows)
+    want = leaf_probe_plain(starts, lows)
+    fs, fl = flip_sign(starts), flip_sign(lows)
+
+    def library():
+        return torch.searchsorted(fl, fs, right=True) - 1
+
+    lib = library()
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "leaf_probe differs from its plain "
+          "version on the YCSB-E run's largest wave")
+    check(torch.equal(got.to(torch.int64), lib), "torch.searchsorted "
+          "differs from leaf_probe")
+    ms = time_ms(lambda: leaf_probe(starts, lows))
+    dev_ms = device_time_ms(lambda: leaf_probe(starts, lows))
+    plain_ms = time_ms(lambda: leaf_probe_plain(starts, lows), iters=20)
+    lib_ms = time_ms(library)
+    n, m = starts.numel(), lows.numel()
+    nbytes = 8 * n + 8 * m + 4 * n
+    row = dict(
+        name="leaf_probe", route="cuda",
+        source="src/repro_torch/csrc/leaf_probe.cu",
+        replaces="src/repro/kernels/leaf_probe/kernel.py:36",
+        launches=launches["leaf_probe"],
+        max_abs_err=max_abs_err(got, want),
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=1e3 * nbytes / MEM_BW_BYTES_PER_S, bound_by="bytes",
+        library_ms=lib_ms)
+    log(f"[kernels] leaf_probe at the YCSB-E run's largest wave: {n} starts "
+        f"over {m} fence lows; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms "
+        f"on the device), plain {plain_ms:.4f} ms, torch.searchsorted "
+        f"{lib_ms:.4f} ms, byte bound {row['bound_ms']:.6f} ms ({nbytes} B "
+        f"at 3.35 TB/s); equal to the plain version and to searchsorted")
+    return row
+
+
+def phase_ycsbe_parity():
+    """tests/_torch_parity.py's small YCSB-E fleet runs on ``cuda`` and on
+    ``cpu``: the one with a client crashed inside a leaf split (equal
+    signatures, the scenario's own audit on the card), and the YCSB-E
+    phase's traffic at 64 clients where the keydir drops inserts (equal
+    results, audits and signatures)."""
+    import repro_torch.core as T
+    from repro_torch.kernels import KERNELS
+    from _torch_parity import (ycsbe_crash_audit, ycsbe_crash_scenario,
+                               ycsbe_small_run)
+    t0 = time.perf_counter()
+    before = {k.__name__: k.launches for k in KERNELS}
+    cl, fleet, crash, futs = ycsbe_crash_scenario(T, device="cuda")
+    launches = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+    check(crash is not None, "ycsbe parity run: no client was crashed "
+          "inside a split")
+    check(launches["leaf_probe"] > 0, "ycsbe parity run launched no "
+          "leaf_probe")
+    a = signature(cl, fleet)
+    audit = ycsbe_crash_audit(T, cl, futs)      # its final scan adds ops
+    c_cl, c_fleet, c_crash, _ = ycsbe_crash_scenario(T, device="cpu")
+    check(c_crash == crash, "ycsbe parity run: the crash differs")
+    compare(a, signature(c_cl, c_fleet), "ycsbe crash run")
+    log(f"[parity] YCSB-E run with client {crash[1]} crashed inside a leaf "
+        f"split at tick {crash[0]}: cuda and cpu signatures equal; audit "
+        f"{audit}; cuda launches {launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the YCSB-E phase's traffic where the keydir loses acked inserts
+    # (tests/test_torch_ordered.py holds the same run to the JAX package)
+    t0 = time.perf_counter()
+    cfg = fleet_dmconfig(64, 500, n_mns=5, replication=2, ordered=True)
+    runs = [ycsbe_small_run(T, cfg, n_clients=64, n_keys=500,
+                            ops_per_client=2, device=d)
+            for d in ("cuda", "cpu")]
+    (audit, res), cl, fleet = runs[0]
+    check(audit["drops"] > 0, "ycsbe drop-regime run dropped no insert")
+    check(res == runs[1][0][1] and audit == runs[1][0][0],
+          "ycsbe drop-regime run: cuda and cpu results differ")
+    compare(signature(cl, fleet), signature(*runs[1][1:]),
+            "ycsbe drop-regime run")
+    log(f"[parity] YCSB-E drop-regime run (64 clients, 500 keys): cuda and "
+        f"cpu results and signatures equal; audit {audit}, "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_migration():
@@ -917,8 +1199,50 @@ def phase_serve(args):
     cache = eng.cache["layers"][0][0]
     log(f"[serve] KV cache pages {tuple(cache.shape)} x2, "
         f"{2 * cache.numel() * cache.element_size()} bytes")
+    serve_listing(eng, prompts)
     profile_serve(model, params, prompts[4:])
     return capture, launches
+
+
+def serve_listing(eng, prompts):
+    """``list_prefixes(0, 64)`` after the serve run: the sorted block-hash
+    keys that SEARCH finds, each with its page, through one ``leaf_probe``
+    launch, which is held against the plain version on the same inputs."""
+    import numpy as np
+    import torch
+    import repro_torch.serving.backend as B
+    from repro_torch.kernels import leaf_probe, leaf_probe_plain
+    from repro_torch.serving.engine import _block_hashes
+    keys = sorted({B._key32(int(h)) for p in prompts
+                   for h in _block_hashes(p)})
+    ptr, found = eng.pool.search(np.array(keys, np.int32))
+    want = [(k, int(p)) for k, p, f in zip(keys, ptr, found) if f][:64]
+    seen = []
+    orig = B.leaf_probe
+
+    def probe(starts, lows):
+        seen.append((starts, lows))
+        return orig(starts, lows)
+
+    B.leaf_probe = probe
+    before = leaf_probe.launches
+    try:
+        got = eng.list_prefixes(0, 64)
+    finally:
+        B.leaf_probe = orig
+    n = leaf_probe.launches - before
+    check(n == len(seen) == 1, f"list_prefixes: {n} leaf_probe launches "
+          f"for {len(seen)} calls, expected 1")
+    check(got == want, f"list_prefixes(0, 64) gave {len(got)} entries that "
+          f"differ from the {len(want)} block hashes SEARCH finds")
+    a, b = leaf_probe(*seen[0]), leaf_probe_plain(*seen[0])
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "leaf_probe differs from its plain version on "
+          "list_prefixes' inputs")
+    log(f"[serve] list_prefixes(0, 64): {len(got)} of {len(keys)} block-hash "
+        f"keys (the {int(found.sum())} that SEARCH finds, sorted), one "
+        f"leaf_probe launch over a keydir of {seen[0][1].numel()}, equal to "
+        f"the plain version")
 
 
 def profile_serve(model, params, prompts, steps: int = 4):
@@ -1120,6 +1444,10 @@ def main(argv=None) -> int:
     ap.add_argument("--clients", type=int, default=1024)
     ap.add_argument("--value-words", type=int, default=123)
     ap.add_argument("--ops-per-client", type=int, default=16)
+    # cut from the paper's 100 000: on an H100 that load alone took 425.5 s
+    # (9 162 ticks) and the whole script 839.7 s
+    ap.add_argument("--e-keys", type=int, default=40_000,
+                    help="keys loaded for the YCSB-E phase")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1148,6 +1476,7 @@ def main(argv=None) -> int:
         f", CUDA {torch.version.cuda}; nvidia-smi: {smi}")
     dev = torch.device("cuda")
     phase_edge_checks(dev)
+    phase_leaf_probe_edges(dev)
     phase_serve_edge_checks(dev)
     cl, fleet, acked, capture, launches, _stats = phase_fleet(args)
     for k in ("race_lookup", "fleet_read"):
@@ -1160,6 +1489,11 @@ def main(argv=None) -> int:
     phase_audit(cl, fleet, acked)
     del cl, fleet, capture
     torch.cuda.empty_cache()
+    cl, capture, e_launches = phase_ycsbe(args)
+    rows.append(leaf_probe_row(capture, e_launches))
+    del cl, capture
+    torch.cuda.empty_cache()
+    phase_ycsbe_parity()
 
     t0 = time.perf_counter()
     cl_g, futs = fault_run("cuda")

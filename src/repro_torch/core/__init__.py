@@ -6,8 +6,9 @@ from .client import FuseeClient  # noqa: F401
 from .master import Master, RecoveryStats  # noqa: F401
 from .faults import (ClientCrashed, ClientHealth, ClusterError,  # noqa: F401
                      ClusterHealth, FaultEvent, FaultInjector, FaultPlan,
-                     MNHealth, ProtocolViolation, RegionLost,
-                     SchedulerStalled)
+                     MNHealth, OrderedIndexDisabled, ProtocolViolation,
+                     RegionLost, SchedulerStalled)
+from . import ordered  # noqa: F401
 from .ring import PlacementDirectory  # noqa: F401
 from .rng import SimRng  # noqa: F401
 from .sim import Scheduler, SimTrace, run_ops_concurrently  # noqa: F401

@@ -26,9 +26,9 @@ pool's device — through the ``race_lookup`` kernel and fuses all hits into
 RTT instead of 1-2 RTTs per key.  Keys that miss (or fail validation) fall
 back to individual SEARCH ops, resubmitted at the batch's response tick.
 
-Counterpart of the JAX package's ``core/api.py``.  Not in this slice:
-SCAN/RANGE (ROADMAP A6; submitting one raises ``NotImplementedError``),
-the device-resident serving backend (A8) and the obs hub hooks (A11).
+Counterpart of the JAX package's ``core/api.py``; SCAN/RANGE run over the
+ordered keydir (core/ordered.py), a batch's scans located by one
+``leaf_probe`` call.  Not in this slice: the obs hub hooks (A11).
 """
 from __future__ import annotations
 
@@ -41,8 +41,9 @@ import numpy as np
 import torch
 
 from . import codec
+from . import ordered
 from .events import CRASHED, OK, OpResult
-from .faults import ClientCrashed, SchedulerStalled
+from .faults import ClientCrashed, OrderedIndexDisabled, SchedulerStalled
 from .shadow import build_shadow
 from ..kernels.race_lookup import race_lookup
 from ..obs.registry import Registry
@@ -101,7 +102,7 @@ class Op:
     @staticmethod
     def scan(start_key, count: int) -> "Op":
         """SCAN: the next ``count`` live keys >= start_key in key order,
-        with their values (ordered keydir; not ported yet: ROADMAP A6).
+        with their values (ordered keydir; needs ordered_index=True).
         Byte/str start keys address the hashed 64-bit key space — integer
         keys scan in true numeric order."""
         return Op("scan", start_key, int(count))
@@ -109,7 +110,7 @@ class Op:
     @staticmethod
     def range(start_key, end_key) -> "Op":
         """RANGE: every live key in ``[start_key, end_key)`` with its
-        value, in key order (ordered keydir; not ported yet: ROADMAP A6)."""
+        value, in key order (ordered keydir; needs ordered_index=True)."""
         return Op("range", start_key, end_key)
 
 
@@ -194,19 +195,24 @@ class SimBackend:
         self._handles = {
             k: self.metrics.counter("api." + k)
             for k in ("ops", "batch_lookups", "batch_fast_hits",
-                      "batch_fallbacks", "shadow_rebuilds")}
+                      "batch_fallbacks", "shadow_rebuilds", "scans",
+                      "scan_locate_batches")}
         # memoized shadow index: (cache fingerprint, entries, shadow table)
         self._shadow = (None, None, None)
         self._pump_rr = 0     # rotating QP-lane pick (starvation freedom)
 
     # ------------------------------------------------------------- submit
     def submit_many(self, ops: Sequence[Op], *,
-                    probed: Optional[list] = None) -> List[KVFuture]:
+                    probed: Optional[list] = None,
+                    located: Optional[list] = None) -> List[KVFuture]:
         """Submit a batch.  ``probed`` optionally carries precomputed cache
         probe results for the batch's GET keys (CacheEntry-or-None aligned
         with the GETs, in op order) — the fleet engine passes these so ONE
         cluster-wide ``race_lookup`` invocation serves every client's batch
-        in a tick instead of one probe per client."""
+        in a tick instead of one probe per client.  ``located`` is the
+        scan twin: covering-leaf-id hints for the batch's SCAN/RANGE start
+        keys (aligned with them in op order, -1 = no hint), from the fleet
+        engine's single ``leaf_probe`` invocation per tick."""
         if self.client.crashed:
             raise ClientCrashed(self.cid)
         if self.sched.clients.get(self.cid) is not self.client:
@@ -215,14 +221,25 @@ class SimBackend:
             raise ClientCrashed(self.cid,
                                 "removed" if self.cid in self.sched.removed
                                 else "replaced")
-        if any(op.kind in ("scan", "range") for op in ops):
-            # reject BEFORE submitting anything: raising mid-batch would
-            # strand the already-accepted ops' futures
-            raise NotImplementedError(
-                "SCAN/RANGE need the ordered index, which is not ported to "
-                "repro_torch yet (ROADMAP A6)")
         futs = [KVFuture(self) for _ in ops]
         self._handles["ops"].value += len(ops)
+        scans = [i for i, op in enumerate(ops)
+                 if op.kind in ("scan", "range")]
+        if scans and not self.client.pool.ordered_regions:
+            # reject BEFORE submitting anything: raising mid-batch would
+            # strand the already-accepted ops' futures
+            raise OrderedIndexDisabled()
+        hints: Dict[int, int] = {}
+        if scans:
+            if located is not None:
+                hints = dict(zip(scans, located))
+            elif self.client.ord_fences and len(scans) >= 2:
+                # one leaf_probe call locates every scan of the batch (the
+                # scan twin of the fused GET fast path)
+                starts = [codec.encode_key(ops[i].key) for i in scans]
+                hints = dict(zip(scans,
+                                 ordered.locate_leaves(self.client, starts)))
+                self._handles["scan_locate_batches"].value += 1
         batched: Dict[int, Any] = {}
         gets = [i for i, op in enumerate(ops) if op.kind == "search"]
         if (len(gets) >= self.batch_search_min and self.client.enable_cache
@@ -232,7 +249,7 @@ class SimBackend:
             if i in batched:
                 continue
             try:
-                self._submit_one(op, futs[i])
+                self._submit_one(op, futs[i], hint=hints.get(i, -1))
             except ClientCrashed:
                 if not (i or batched):
                     raise      # nothing accepted yet: reject the whole batch
@@ -245,10 +262,21 @@ class SimBackend:
                 break
         return futs
 
-    def _submit_one(self, op: Op, fut: KVFuture):
+    def _submit_one(self, op: Op, fut: KVFuture, *, hint: int = -1):
         while self.max_inflight and self.sched.inflight(self.cid) >= self.max_inflight:
             self._pump()
         key = codec.encode_key(op.key) if op.key is not None else 0
+        if op.kind in ("scan", "range"):      # submit_many checked the keydir
+            self._handles["scans"].value += 1
+            if op.kind == "scan":
+                value = int(op.value)
+                gen = self.client.op_scan(key, value, hint=hint)
+            else:
+                value = codec.encode_key(op.value)
+                gen = self.client.op_range(key, value, hint=hint)
+            fut.record = self.sched.submit(self.cid, op.kind, key, value,
+                                           gen=gen)
+            return
         value = codec.encode_value(op.value) if op.kind in ("insert", "update") \
             else None
         fut.record = self.sched.submit(self.cid, op.kind, key, value)
@@ -412,14 +440,21 @@ class SimBackend:
             "crashed_ops": sum(r.result.status == CRASHED for r in recs),
             "avg_rtts_by_kind": {k: float(np.mean(v)) for k, v in rtts.items()},
             "cache_entries": len(self.client.cache),
+            # inserts whose ordered-keydir entry hit FULL (scan-invisible
+            # until the region is resized; size it for the keyspace)
+            "ord_full_drops": self.client.ord_full_drops,
             **{k: h.value for k, h in self._handles.items()},
         }
 
 
 # -------------------------------------------------------------------- store
 class KVStore:
-    """The unified client-facing store: pipelined batch ops over futures,
-    over ``SimBackend`` (``FuseeCluster.store()`` builds one)."""
+    """The unified client-facing store: pipelined batch ops over futures.
+
+    One surface for both substrates — construct over ``SimBackend`` (the
+    event-level protocol simulation; ``FuseeCluster.store()`` does this)
+    or ``serving.DeviceBackend`` (the device-resident pool).
+    """
 
     def __init__(self, backend):
         self.backend = backend
@@ -457,14 +492,16 @@ class KVStore:
         return self.submit(Op.reclaim()).result()
 
     def scan(self, start_key, count: int) -> List[tuple]:
-        """The next ``count`` live keys >= start_key in key order — raises
-        ``NotImplementedError`` until the ordered index is ported (A6)."""
+        """The next ``count`` live keys >= start_key in key order, as
+        ``[(key64, value), ...]`` (needs ``DMConfig.ordered_index=True``;
+        integer keys scan in numeric order, byte/str keys in hashed-key
+        order)."""
         r = self.submit(Op.scan(start_key, count)).result()
         return r.value if r.status == OK else []
 
     def range(self, start_key, end_key) -> List[tuple]:
-        """Every live key in ``[start_key, end_key)`` — raises
-        ``NotImplementedError`` until the ordered index is ported (A6)."""
+        """Every live key in ``[start_key, end_key)`` with its value, in
+        key order (needs ``DMConfig.ordered_index=True``)."""
         r = self.submit(Op.range(start_key, end_key)).result()
         return r.value if r.status == OK else []
 

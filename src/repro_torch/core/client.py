@@ -14,8 +14,8 @@ doorbell-batched round trip.  The conflict-free fast path is
 INSERT/UPDATE/DELETE = 4 RTTs, SEARCH = 1-2 RTTs.
 
 Counterpart of the JAX package's ``core/client.py``: plain host Python, the
-same state machines verb for verb.  Not in this slice: the ordered-keydir
-hooks and SCAN/RANGE (ROADMAP A6).
+same state machines verb for verb, with the ordered-keydir hooks and
+SCAN/RANGE of core/ordered.py.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from . import layout as L
+from . import ordered
 from . import race
 from .events import (CAUSE_CAS_LOST, CAUSE_FP_COLLISION, CAUSE_FULL,
                      CAUSE_LOSE_POLL, CAUSE_NONE, CAUSE_STALE_EPOCH,
@@ -136,6 +137,11 @@ class FuseeClient:
         self.notified_prepare = False
         # deferred background frees: list of (region, block_idx, obj_idx)
         self._pending_resets: List[Tuple[int, int]] = []
+        # ordered-keydir fence cache: leaf_id -> low key (append-only
+        # facts — a leaf's low never changes and leaves never merge; see
+        # core/ordered.py).  Empty until the first scan/ensure bootstraps.
+        self.ord_fences: Dict[int, int] = {}
+        self.ord_full_drops = 0   # inserts whose keydir entry hit ORD FULL
         self.crashed = False
 
     # ------------------------------------------------------------------ util
@@ -874,6 +880,11 @@ class FuseeClient:
                 self.cache[key] = CacheEntry(target, v_new, access=1,
                                              region=region,
                                              shard_ver=self._shard_ver(region))
+            if self.pool.ordered_regions:
+                # ordered keydir maintenance BEFORE the ack: a committed
+                # key must be scan-visible (core/ordered.py contract)
+                if (yield from ordered.ord_ensure(self, key)) == FULL:
+                    self.ord_full_drops += 1
             return OpResult(OK, rule=rule)
 
     def op_update(self, key: int, value):
@@ -1044,6 +1055,10 @@ class FuseeClient:
             bg += self._reset_used_verbs(ptr, sc, prev_ptr)
             yield from self._bg_cleanup(bg, "bg:del_cleanup")
             self.cache.pop(key, None)
+            if self.pool.ordered_regions:
+                # clear the keydir entry (re-checks RACE: a racing
+                # re-insert that committed gets its entry re-ensured)
+                yield from ordered.ord_clear(self, key)
             return OpResult(OK, rule=rule)
 
     # --------------------------------------------------- owner-side reclaim
@@ -1091,14 +1106,17 @@ class FuseeClient:
         return OpResult(OK, value=[reclaimed])
 
     # ----------------------------------------------------- ordered scans
-    def op_scan(self, start: int, count: int, **_):
-        """SCAN over the ordered keydir — not ported yet."""
-        raise NotImplementedError(
-            "SCAN needs the ordered index, which is not ported to "
-            "repro_torch yet (ROADMAP A6)")
+    def op_scan(self, start: int, count: int, *, hint: int = -1,
+                batched: bool = True):
+        """SCAN(start_key, count) over the ordered keydir (core/ordered.py):
+        the next ``count`` live keys >= start in key order, values fetched
+        and validated through the RACE index in batched phases."""
+        return ordered.op_scan(self, start, count, hint=hint,
+                               batched=batched)
 
-    def op_range(self, start: int, end: int, **_):
-        """RANGE over the ordered keydir — not ported yet."""
-        raise NotImplementedError(
-            "RANGE needs the ordered index, which is not ported to "
-            "repro_torch yet (ROADMAP A6)")
+    def op_range(self, start: int, end: int, *, hint: int = -1,
+                 batched: bool = True):
+        """RANGE(start, end): every live key in [start, end) with its
+        value, in key order."""
+        return ordered.op_range(self, start, end, hint=hint,
+                                batched=batched)

@@ -33,9 +33,10 @@ fleet ticks; it captures only step-mode decisions.
 Counterpart of the JAX package's ``core/fleet.py``.  Per fused tick the
 pool receives one host-to-device copy of the tick's coordinates and values
 and returns every result in one copy (``heap.DMPool.exec_fused_tick``);
-every READ sweep, fused or not, is one ``fleet_read`` launch.  Not in this
-slice: ``locate_wave`` and SCAN/RANGE waves (ROADMAP A6), the obs hub's
-per-tick sampling (A11) and the tracer fallback (A12).
+every READ sweep, fused or not, is one ``fleet_read`` launch, the leaf reads
+of every in-flight scan included; a wave's SCAN/RANGE starts are located by
+one ``leaf_probe`` launch (``locate_wave``).  Not in this slice: the obs
+hub's per-tick sampling (A11) and the tracer fallback (A12).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 
 from . import codec
+from . import ordered
 from .api import KVFuture, Op, SimBackend, _fold32, probe_to_host
 from .faults import SchedulerStalled
 from .shadow import build_shadow, hash32
@@ -82,8 +84,9 @@ class FleetEngine:
         reg = scheduler.metrics
         names = ("ticks", "verbs", "array_calls", "master_calls",
                  "index_probe_verbs", "probe_invocations", "probe_keys",
-                 "probe_hits", "shadow_rebuilds", "fused_ticks",
-                 "fallback_ticks")
+                 "probe_hits", "shadow_rebuilds", "ord_leaf_verbs",
+                 "scan_locate_invocations", "scan_locate_keys",
+                 "fused_ticks", "fallback_ticks")
         self._handles: Dict[str, Any] = {
             k: reg.counter("fleet." + k) for k in names}
         self._handles["max_lanes"] = reg.gauge("fleet.max_lanes")
@@ -96,6 +99,7 @@ class FleetEngine:
         self._g_max_lanes = self._handles["max_lanes"]
         self._c_array = self._handles["array_calls"]
         self._c_idx_probe = self._handles["index_probe_verbs"]
+        self._c_ord_leaf = self._handles["ord_leaf_verbs"]
         self._c_fused = self._handles["fused_ticks"]
         self._c_fallback = self._handles["fallback_ticks"]
         self._c_verbs_kind = {k: self._handles["verbs_" + k]
@@ -235,6 +239,10 @@ class FleetEngine:
             shard_set = pool.index_region_set
             self._c_idx_probe.value += sum(
                 v.region in shard_set for v in verbs)
+            # ordered-keydir leaf sweeps of EVERY in-flight scan coalesce
+            # into this same one-gather-per-tick read sweep
+            self._c_ord_leaf.value += sum(
+                v.region in pool.ordered_region_set for v in verbs)
             return pool.read_batch([v.region for v in verbs],
                                    [v.replica for v in verbs],
                                    [v.off for v in verbs],
@@ -297,6 +305,8 @@ class FleetEngine:
             shard_set = pool.index_region_set
             self._c_idx_probe.value += sum(
                 v.region in shard_set for v in verbs)
+            self._c_ord_leaf.value += sum(
+                v.region in pool.ordered_region_set for v in verbs)
             k = len(verbs)
             reads = (_i64((v.region for v in verbs), k),
                      _i64((v.replica for v in verbs), k),
@@ -424,19 +434,47 @@ class FleetEngine:
             out.append(hits)
         return out
 
+    def locate_wave(self, wave: Sequence[Tuple[SimBackend, Sequence[Op]]]
+                    ) -> Dict[int, List[int]]:
+        """ONE ``leaf_probe`` launch locating the covering leaf of every
+        SCAN/RANGE start key across every client in the wave (the scan
+        twin of ``probe_wave``).  Clients' fence caches are unioned — leaf
+        ids are global facts, and a stale hint is merely re-validated by
+        the scan's own leaf read.  Returns ``{wave_row: [leaf_id hints
+        aligned with the row's scans]}``."""
+        fences: Dict[int, int] = {}
+        spans: List[Tuple[int, int, int]] = []   # (row, start_pos, n)
+        starts: List[int] = []
+        for row, (be, ops) in enumerate(wave):
+            row_starts = [codec.encode_key(op.key) for op in ops
+                          if op.kind in ("scan", "range")]
+            if not row_starts:
+                continue
+            fences.update(be.client.ord_fences)
+            spans.append((row, len(starts), len(row_starts)))
+            starts.extend(row_starts)
+        if not starts or not fences:
+            return {row: [-1] * n for (row, _s, n) in spans}
+        by_low = sorted((low, lid) for lid, low in fences.items())
+        lows = ordered._lows_tensor([low for (low, _lid) in by_low],
+                                    self.sched.pool.device)
+        idx = ordered._leaf_probe(starts, lows)
+        self._handles["scan_locate_invocations"].value += 1
+        self._handles["scan_locate_keys"].value += len(starts)
+        hints = [by_low[int(i)][1] if i >= 0 else by_low[0][1]
+                 for i in idx]
+        return {row: hints[s:s + n] for (row, s, n) in spans}
+
     def submit_wave(self, wave: Sequence[Tuple[SimBackend, Sequence[Op]]]
                     ) -> List[List[KVFuture]]:
         """Submit one op batch per backend with all cache-resident GET
         probes served by a single cluster-wide kernel invocation (instead
         of one probe per client, which is what per-backend
-        ``submit_batch`` would do).  Backends should be constructed with
-        ``max_inflight=0`` (unlimited) — fleet mode paces admission by
-        waves, not by per-client backpressure pumps."""
-        if any(op.kind in ("scan", "range") for _be, ops in wave
-               for op in ops):
-            raise NotImplementedError(
-                "SCAN/RANGE waves need the ordered index, which is not "
-                "ported to repro_torch yet (ROADMAP A6)")
+        ``submit_batch`` would do), and all SCAN/RANGE start keys located
+        by a single ``leaf_probe`` invocation (``locate_wave``).
+        Backends should be constructed with ``max_inflight=0``
+        (unlimited) — fleet mode paces admission by waves, not by
+        per-client backpressure pumps."""
         wants = []
         rows = []                      # per wave row: index into wants or -1
         for be, ops in wave:
@@ -449,9 +487,13 @@ class FleetEngine:
             else:
                 rows.append(-1)
         probes = self.probe_wave(wants) if wants else []
+        located = self.locate_wave(wave) \
+            if any(op.kind in ("scan", "range")
+                   for _be, ops in wave for op in ops) else {}
         return [be.submit_many(list(ops),
-                               probed=probes[row] if row >= 0 else None)
-                for (be, ops), row in zip(wave, rows)]
+                               probed=probes[row] if row >= 0 else None,
+                               located=located.get(r))
+                for r, ((be, ops), row) in enumerate(zip(wave, rows))]
 
     # --------------------------------------------------------------- stats
     def stats(self) -> Dict[str, Any]:

@@ -22,8 +22,8 @@ Device contract
   in one copy, runs the READ sweep through the ``fleet_read`` kernel and
   the WRITE/CAS/FAA sweeps as tensor scatters, and brings every result back
   in one copy.  Same-word CAS/FAA races (rare) cost one extra round trip.
-
-Not in this slice: the ordered keydir (ROADMAP A6).
+* ``DMConfig(ordered_index=True)`` adds the ordered keydir's region
+  (core/ordered.py) after the index shards, placed and migrated like them.
 """
 from __future__ import annotations
 
@@ -129,8 +129,9 @@ class DMConfig:
     slots_per_bucket: int = 7
     size_classes: int = 6
     index_shards: int = 1           # S: independent RACE shard regions
-    # the ordered secondary index is not ported yet (ROADMAP A6): True
-    # raises at pool construction
+    # Ordered secondary index (core/ordered.py): a replicated keydir of
+    # fat leaves in its own region, enabling SCAN/RANGE.  Off by default —
+    # the classic layout and per-op RTT counts are bit-identical.
     ordered_index: bool = False
 
     @property
@@ -268,10 +269,6 @@ class DMPool:
 
     def __init__(self, cfg: DMConfig, num_clients: int = 64, seed: int = 0,
                  *, device=None):
-        if cfg.ordered_index:
-            raise NotImplementedError(
-                "DMConfig(ordered_index=True): the ordered index (SCAN/RANGE) "
-                "is not ported to repro_torch yet (ROADMAP A6)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_clients = num_clients
@@ -279,7 +276,7 @@ class DMPool:
         # substrate); sized for the initial placement, grows by doubling
         r_eff = min(cfg.replication, cfg.num_mns)
         init_cells = (cfg.num_mns * cfg.regions_per_mn + 1
-                      + cfg.index_shards) * r_eff
+                      + cfg.index_shards + int(cfg.ordered_index)) * r_eff
         self.slab = RegionSlab(cfg.region_words, capacity=init_cells + 2,
                                device=self.device)
         self.mns = [MemoryNode(i, cfg, self.slab) for i in range(cfg.num_mns)]
@@ -325,12 +322,23 @@ class DMPool:
         self.index_region_set = frozenset(self.index_regions)
         self.num_regions = FIRST_DATA_REGION + data_count \
             + (cfg.index_shards - 1)
+        # the ordered keydir region (core/ordered.py) lives after the
+        # index shards; strided on the ring like them, first-class for
+        # migration/recovery.  Absent entirely when ordered_index=False.
+        self.ordered_regions: List[int] = []
+        if cfg.ordered_index:
+            self.ordered_regions = [self.num_regions]
+            self.num_regions += 1
+        self.ordered_region_set = frozenset(self.ordered_regions)
         shard_placement = self.desired_index_placement()
         for g in range(FIRST_DATA_REGION, FIRST_DATA_REGION + data_count):
             self._host_all(g, self.directory.place(g))
         self._host_all(META_REGION, self.directory.place(META_REGION))
-        for g in self.index_regions:
+        for g in self.index_regions + self.ordered_regions:
             self._host_all(g, self.directory.pin(g, shard_placement[g]))
+        if self.ordered_regions:
+            from . import ordered                 # local: layering, no cycle
+            ordered.init_region(self, self.ordered_regions[0])
 
     def _host_all(self, region: int, reps: List[int]):
         for mid in reps:
@@ -338,15 +346,18 @@ class DMPool:
                 self.mns[mid].host_region(region)
 
     def desired_index_placement(self) -> Dict[int, List[int]]:
-        """Where the index shards should live on the current membership
-        ring: shard 0 at the classic hash start (S=1 layout unchanged),
-        shard s offset by s so S shards spread over min(S, N) MNs."""
+        """Where the index shards — and the ordered keydir region —
+        should live on the current membership ring: shard 0 at the classic
+        hash start (S=1 layout unchanged), shard s offset by s so S shards
+        spread over min(S, N) MNs; the ordered region continues the stride
+        after the shards."""
         members = self.directory.members
         n = len(members)
         start0 = L.hash64(INDEX_REGION, seed=3) % n
         return {g: ring_replicas(g, members, self.cfg.replication,
                                  start=(start0 + s) % n)
-                for s, g in enumerate(self.index_regions)}
+                for s, g in enumerate(self.index_regions
+                                      + self.ordered_regions)}
 
     # ---------------- key -> shard routing ---------------------------------
     @property
@@ -462,15 +473,23 @@ class DMPool:
                          members: Optional[List[int]] = None,
                          epoch: Optional[int] = None,
                          mn_bytes: Optional[np.ndarray] = None,
-                         versions: Optional[Dict[int, int]] = None):
+                         versions: Optional[Dict[int, int]] = None,
+                         ordered_regions: Optional[List[int]] = None):
         """Rebuild this pool's memory from plain host state: the flat slab
         words (uint64 or int64, ``capacity * region_words`` of them), the
         ``(mid, region) -> cell`` map, the region -> replica-list placement
         and, optionally, MN liveness, the committed ring membership, the
         lease epoch, per-MN byte counters and per-region placement
-        versions.  The config must match the one
-        the state was taken under; the slab lands on this pool's device."""
+        versions.  The config must match the one the state was taken
+        under (``ordered_regions``, when given, is checked against it: the
+        ordered keydir — cursor, leaves — travels in the slab words); the
+        slab lands on this pool's device."""
         rw = self.cfg.region_words
+        if ordered_regions is not None \
+                and list(ordered_regions) != self.ordered_regions:
+            raise ValueError(f"state has ordered regions "
+                             f"{list(ordered_regions)}, this pool's config "
+                             f"gives {self.ordered_regions}")
         words = np.ascontiguousarray(slab_words).view(np.int64)
         if words.size % rw:
             raise ValueError(f"slab of {words.size} words is not a whole "

@@ -14,8 +14,8 @@ protocol under failures (Alg. 4) is fully interleaved and schedule-driven.
 Counterpart of the JAX package's ``core/master.py``.  The master reads and
 writes region copies directly; here those copies live on the pool's device,
 so a procedure that scans many words takes one host snapshot of them
-(``heap.to_u64``) and writes single words back (``heap.set_word``).  Not in
-this slice: ordered-keydir repair (ROADMAP A6).
+(``heap.to_u64``) and writes single words back (``heap.set_word``); the
+ordered keydir's repair works the same way (core/ordered.py).
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from . import layout as L
+from . import ordered
 from . import race
 from .client import MASTER_COMMIT_MARK, FuseeClient
 from .events import OK, OpResult
@@ -132,6 +133,16 @@ class Master:
                 src = prim.regions[mig.region][:n]
                 for arr in mig.targets.values():
                     arr[:n] = src
+        elif mig.region in pool.ordered_region_set:
+            # the ordered keydir migrates like an index shard: converge
+            # straddling claim/clear rounds (adopt-backup + structural
+            # repair) before roles change, then resync the staged targets
+            ordered.repair_ordered(pool)
+            prim = pool.mns[pool.placement[mig.region][0]]
+            if prim.alive and mig.region in prim.regions:
+                src = prim.regions[mig.region]
+                for arr in mig.targets.values():
+                    arr.copy_(src)
         old_reps = list(pool.placement[mig.region])
         for mid, arr in mig.targets.items():
             # install by copy into a slab-backed cell (heap.RegionSlab):
@@ -239,6 +250,9 @@ class Master:
         for g in pool.index_regions:
             if mid in pool.placement[g]:
                 self._repair_index_region(g)
+        #    ... and the ordered keydir's adopt-backup + structural repair
+        if any(mid in pool.placement[g] for g in pool.ordered_regions):
+            ordered.repair_ordered(pool)
         # 2. region re-homing: every region with a replica on the dead MN gets
         #    a fresh replica on the next alive ring successor; the first alive
         #    replica becomes primary.
@@ -352,6 +366,11 @@ class Master:
         pool = self.pool
         st = RecoveryStats(reconnect_ms=self.reconnect_ms)
         self.maybe_recover_mns()
+        # the crashed client may have died mid-leaf-split or mid-claim in
+        # the ordered keydir: converge replicas, reap half-split leaves,
+        # re-home stranded entries BEFORE replaying its embedded log (the
+        # log replay below re-ensures entries for recovered keys)
+        ordered.repair_ordered(pool)
 
         # -- step 1: find all blocks owned by cid via the BATs (MN-side scan)
         owned: List[Tuple[int, int]] = []  # (region, block_idx)
@@ -492,6 +511,10 @@ class Master:
                 pool.cas(region, i, slot_off, old_v, v_new)
             st.fixed_primaries += 1
         # else c3: finished; nothing to do
+        if obj["opcode"] != L.OPCODE_DELETE:
+            # the client may have crashed between its RACE commit and its
+            # ordered-keydir ensure: restore scan visibility (§5.3)
+            ordered.ensure_entry_direct(pool, key)
 
     def _find_slot_of(self, key: int, *vals) -> Optional[int]:
         cfg = self.pool.cfg
@@ -553,6 +576,8 @@ class Master:
         self._commit_log_of(v_new)
         if opcode == L.OPCODE_DELETE:
             self._reclaim_obj(ptr, sc)
+        else:
+            ordered.ensure_entry_direct(self.pool, key)
 
     def _converge_obj_replicas(self, ptr: int, sc: int) -> None:
         """§5.3: re-replicate a recovered log-entry object to all replicas.

@@ -212,12 +212,14 @@ class MigrationEngine:
 
     def _plan_drain(self, mid: int):
         """Plan migrations for every non-index region still replicated on
-        ``mid`` (data + meta; index shards go through the rebalance)."""
+        ``mid`` (data + meta; index shards and the ordered keydir region
+        go through the rebalance)."""
         pool = self.pool
         members = pool.directory.members
         for g in sorted(pool.placement):
             reps = pool.placement[g]
-            if mid not in reps or g in pool.index_region_set:
+            if mid not in reps or g in pool.index_region_set \
+                    or g in pool.ordered_region_set:
                 continue
             survivors = [m for m in reps if m != mid]
             # full ring order from the region's hash start (one source of

@@ -22,7 +22,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("race_lookup", "fleet_read", "flash_attention",
+SOURCES = ("race_lookup", "fleet_read", "leaf_probe", "flash_attention",
            "paged_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

@@ -12,20 +12,22 @@ backing a key is reported on ``OpResult.page`` — the serving engine uses
 it for KV-cache page accounting.
 
 Counterpart of the JAX package's ``serving/backend.py``.  SCAN and RANGE
-need the ordered keydir and the ``leaf_probe`` kernel, which are not
-ported yet (ROADMAP A6): submitting one raises ``NotImplementedError``,
-and the backend keeps no keydir.
+locate their start in the backend's sorted keydir with the ``leaf_probe``
+kernel on the pool's device and validate the candidates with one batched
+SEARCH (``race_lookup``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..core import codec
 from ..core.api import KVFuture, Op
 from ..core.events import FULL, NOT_FOUND, OK, OpResult
 from ..core.faults import ClientCrashed
+from ..kernels.leaf_probe import leaf_probe
 from .kvpool import KVPool, OP_INSERT, OP_UPDATE, PoolConfig
 
 
@@ -45,6 +47,12 @@ class DeviceBackend:
         self.cid = cid
         self.crashed = False                 # set by ServeEngine.crash_worker
         self._values: Dict[int, Any] = {}    # page -> encoded value words
+        # ordered keydir twin (core/ordered.py on the sim substrate): the
+        # key32s this backend has upserted, kept as a *superset* of the
+        # live set — scans validate every candidate against the device
+        # index (one batched race_lookup probe), so spurious members are
+        # filtered exactly like stale ordered entries in the simulator
+        self._keydir: set = set()
 
     # ------------------------------------------------------------- submit
     def submit_many(self, ops: Sequence[Op]) -> List[KVFuture]:
@@ -111,6 +119,9 @@ class DeviceBackend:
                 page = int(pages[m])
                 won = bool(ok[k]); k += 1
                 self._values[page] = codec.encode_value(ops[idxs[n]].value)
+                # keydir superset: even a lost upsert means the KEY is
+                # live (another page won its slot); scans validate
+                self._keydir.add(key)
                 results[key] = OpResult(OK if won else FULL, page=page,
                                         value=self._values[page])
             for i in idxs:
@@ -119,17 +130,56 @@ class DeviceBackend:
             keys = np.array([_key32(ops[i].key) for i in idxs], np.int32)
             ok = self.pool.delete_batch(self.cid, keys)
             for n, i in enumerate(idxs):
+                if ok[n]:
+                    self._keydir.discard(int(keys[n]))
                 futs[i]._resolve(OpResult(OK if ok[n] else NOT_FOUND))
         elif kind in ("scan", "range"):
-            raise NotImplementedError(
-                f"{kind.upper()} on the device pool needs the ordered keydir "
-                "and the leaf_probe kernel, not ported yet (ROADMAP A6)")
+            for i in idxs:
+                futs[i]._resolve(self._scan_one(ops[i]))
         elif kind == "reclaim":
             n = self.pool.reclaim(self.cid)
             for i in idxs:
                 futs[i]._resolve(OpResult(OK, value=[n]))
         else:
             raise ValueError(kind)
+
+    # ------------------------------------------------------ ordered scan
+    def _scan_one(self, op: Op) -> OpResult:
+        """SCAN/RANGE on the device substrate: locate the start position
+        in the sorted keydir with one ``leaf_probe`` launch on the pool's
+        device, validate the candidate window against the device index
+        with one batched ``race_lookup`` probe, and return ``[(key32,
+        value), ...]`` in key order — the serving twin of
+        core/ordered.py."""
+        start = _key32(op.key)
+        if op.kind == "scan":
+            count, end = int(op.value), None
+        else:
+            count, end = None, _key32(op.value)
+        keys = np.array(sorted(self._keydir), np.uint64)
+        if not len(keys):
+            return OpResult(OK, value=[])
+        dev = self.pool.device
+        pos = int(leaf_probe(
+            torch.tensor([start], dtype=torch.int64, device=dev),
+            torch.from_numpy(keys.view(np.int64)).to(dev))[0])
+        first = pos if (pos >= 0 and int(keys[pos]) >= start) else pos + 1
+        cands = keys[first:]
+        if end is not None:
+            cands = cands[cands < np.uint64(end)]
+        out: list = []
+        i = 0
+        while i < len(cands) and (count is None or len(out) < count):
+            window = cands[i:i + max(2 * (count or 64), 64)]
+            ptr, found = self.pool.search(window.astype(np.int64)
+                                          .astype(np.int32))
+            for n, k in enumerate(window.tolist()):
+                if found[n]:
+                    out.append((int(k), self._values.get(int(ptr[n]))))
+                    if count is not None and len(out) >= count:
+                        break
+            i += len(window)
+        return OpResult(OK, value=out)
 
     # --------------------------------------------------- page management
     def release_pages(self, pages: np.ndarray):

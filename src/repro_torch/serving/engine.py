@@ -17,8 +17,7 @@ by all slots, prompts right-padded to the longest one on every (re)prefill,
 and the whole active batch re-prefilled whenever membership changes.  It
 runs eagerly on the model's device, one decode step per tick.
 
-Counterpart of the JAX package's ``serving/engine.py``.  ``list_prefixes``
-needs the ordered keydir and is not ported yet (ROADMAP A6).
+Counterpart of the JAX package's ``serving/engine.py``.
 """
 from __future__ import annotations
 
@@ -153,11 +152,19 @@ class ServeEngine:
                 "histograms": {}, "series": {}, "heat": {}}
 
     def list_prefixes(self, start: int = 0, count: int = 64) -> List[tuple]:
-        """Ordered listing of live prefix-cache entries: needs the ordered
-        keydir and the ``leaf_probe`` kernel (ROADMAP A6)."""
-        raise NotImplementedError(
-            "list_prefixes needs SCAN over the ordered keydir and the "
-            "leaf_probe kernel, not ported yet (ROADMAP A6)")
+        """Ordered listing of live prefix-cache entries: the next
+        ``count`` block-hash keys >= ``start`` in key order, each with its
+        backing page id — the serving twin of the simulator's SCAN
+        (located by the ``leaf_probe`` kernel, validated against the
+        device index in one batched ``race_lookup`` probe)."""
+        res = self.store.submit(Op.scan(start, count)).result()
+        keys = [k for (k, _v) in (res.value or [])]
+        if not keys:
+            return []
+        ptr, found = self.pool.search(np.array(keys, np.int64)
+                                      .astype(np.int32))
+        return [(int(k), int(p)) for k, p, f in
+                zip(keys, ptr, found) if f]
 
     # ------------------------------------------------------------- ticks --
     def _admit(self):

@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain torch version,
-and a seeded fleet run, fault run and serving run on ``cuda`` against the
-same runs on ``cpu``.  Every test is marked ``cuda`` and skips without a
+and a seeded fleet run, fault run, YCSB-E run (with a client crashed inside
+a leaf split) and serving run on ``cuda`` against the same runs on ``cpu``.  Every test is marked ``cuda`` and skips without a
 GPU.
 
 This file imports neither ``jax`` nor the JAX package, so it also runs on
@@ -15,12 +15,14 @@ import torch
 import repro_torch.core as T
 from repro_torch.core.shadow import build_shadow
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
-                                 fleet_read, fleet_read_plain,
-                                 paged_attention, paged_attention_plain,
-                                 race_lookup, race_lookup_plain)
+                                 fleet_read, fleet_read_plain, leaf_probe,
+                                 leaf_probe_plain, paged_attention,
+                                 paged_attention_plain, race_lookup,
+                                 race_lookup_plain)
 
 from _torch_parity import (assert_same_run, attn_bound, port_serve_run,
-                           require_cuda, signature, uniform_attn_inputs)
+                           require_cuda, signature, uniform_attn_inputs,
+                           ycsbe_crash_audit, ycsbe_crash_scenario)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +69,56 @@ def test_fleet_read_kernel_matches_plain():
     assert torch.equal(got, want)
     assert fleet_read(slab, base[:0], start[:1], 0).numel() == 0
     assert fleet_read.launches == before + 1        # nothing to launch
+
+
+LEAF_EDGES = [0, 1 << 31, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63,
+              (1 << 64) - 2]
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4097])
+@pytest.mark.parametrize("m", [0, 1, 40_000])
+def test_leaf_probe_kernel_matches_plain(n, m):
+    """Bit for bit against the plain version: starts and lows at the 32-
+    and 64-bit boundaries, a run of duplicate lows, no lows at all."""
+    require_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n + m)
+    edges = np.array(LEAF_EDGES, np.uint64)
+    lows = np.concatenate([rng.choice(edges, min(m, 7)),
+                           rng.integers(0, 1 << 64, max(m - 7, 0),
+                                        dtype=np.uint64)])
+    if m > 7:
+        lows[10:50] = lows[10]
+    lows = np.sort(lows)
+    starts = np.concatenate([edges, edges - np.uint64(1), lows[:50],
+                             rng.integers(0, 1 << 64, n, dtype=np.uint64)])[:n]
+    st = torch.from_numpy(starts.view(np.int64)).to(dev)
+    lw = torch.from_numpy(lows.view(np.int64)).to(dev)
+    before = leaf_probe.launches
+    got = leaf_probe(st, lw)
+    want = leaf_probe_plain(st, lw)
+    torch.cuda.synchronize()
+    assert leaf_probe.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(),
+                          np.searchsorted(lows, starts, side="right") - 1)
+    assert leaf_probe(st[:0], lw).numel() == 0
+    assert leaf_probe.launches == before + 1        # nothing to launch
+
+
+def test_ycsbe_crash_run_on_cuda_matches_cpu():
+    """The small YCSB-E run with a client crashed inside a leaf split: its
+    locates launch leaf_probe on the card, its audit holds, and it equals
+    the same run on the CPU."""
+    require_cuda()
+    before = leaf_probe.launches
+    cl, fleet, crash, futs = ycsbe_crash_scenario(T, device="cuda")
+    assert crash is not None and leaf_probe.launches > before
+    gpu = signature(cl, fleet)
+    ycsbe_crash_audit(T, cl, futs)          # its final scan adds ops
+    c_cl, c_fleet, c_crash, _ = ycsbe_crash_scenario(T, device="cpu")
+    assert c_crash == crash
+    assert_same_run(signature(c_cl, c_fleet), gpu)
 
 
 def _fleet_run(device):
@@ -306,11 +358,12 @@ def test_serve_run_on_cuda_matches_cpu():
     model = build(cfg, device="cuda")
     params = model.init(seed=0)
     before = (flash_attention.launches, paged_attention.launches,
-              race_lookup.launches)
+              race_lookup.launches, leaf_probe.launches)
     gpu = port_serve_run(model, params)
     assert flash_attention.launches > before[0]
     assert paged_attention.launches > before[1]
     assert race_lookup.launches > before[2]
+    assert leaf_probe.launches > before[3]           # list_prefixes
     assert gpu["converged"]
     assert sum(hits for _r, _o, hits in gpu["requests"]) >= 2
     cpu_params = tree_map(lambda t: t.cpu(), params)

@@ -5,9 +5,10 @@ cluster-wide ``probe_wave`` GET probe, fused ticks through
 ``exec_fused_tick``) must be bit-identical across the packages: pool bytes,
 ``health()``, the op history, the fleet counters and per-MN bytes — the
 signature of ``tests/test_fleet_fused.py`` minus the metrics registry.
-Covered: YCSB-A and YCSB-C at that file's size (24 clients, 64 keys), a
-fault storm with client and MN crashes, the churn storm with an MN joining
-and leaving mid-run, and ``add_mn`` fired under load.
+Covered: YCSB-A, YCSB-C and YCSB-E (95% SCAN over the ordered keydir, 5%
+INSERT of fresh keys) at that file's size (24 clients, 64 keys), a fault
+storm with client and MN crashes, the churn storm with an MN joining and
+leaving mid-run, and ``add_mn`` fired under load.
 """
 import dataclasses
 
@@ -72,8 +73,9 @@ def _drive(M, cl, fleet, plans):
 def _ycsb(M, mix_name, seed, *, n_clients=24, n_keys=64, ops_per_client=6,
           **kw):
     mix = YCSB[mix_name]
-    cl = M.FuseeCluster(_cfg(M, fleet_dmconfig(n_clients, n_keys)),
-                        num_clients=n_clients, seed=seed, **kw)
+    cfg = fleet_dmconfig(n_clients, n_keys, ordered="scan" in mix)
+    cl = M.FuseeCluster(_cfg(M, cfg), num_clients=n_clients, seed=seed,
+                        **kw)
     fleet = cl.fleet()
     for k in range(n_keys):
         cl.scheduler.submit(k % n_clients, "insert", k, [k])
@@ -83,23 +85,35 @@ def _ycsb(M, mix_name, seed, *, n_clients=24, n_keys=64, ops_per_client=6,
     probs = np.array([mix[k] for k in kinds], float)
     probs /= probs.sum()
     plans = [[] for _ in range(n_clients)]
+    fresh = n_keys
     for i in range(n_clients * ops_per_client):
         kind = kinds[int(wl.choice(len(kinds), p=probs))]
         key = int(wl.integers(n_keys))
         val = [i, (1 << 64) - 1 - i] if kind in ("insert", "update") else None
+        if kind == "scan":              # YCSB-E: length uniform in 1..100
+            val = 1 + int(wl.integers(100))
+        elif kind == "insert":          # ... beside inserts of fresh keys
+            key, fresh = fresh, fresh + 1
         plans[i % n_clients].append(M.Op(kind, key, val))
     _drive(M, cl, fleet, plans)
     return cl, fleet
 
 
 @pytest.mark.parametrize("mix_name,seed", [("A", 0), ("A", 7), ("C", 0),
-                                           ("C", 3)])
+                                           ("C", 3), ("E", 0), ("E", 3)])
 def test_ycsb_matches_reference(mix_name, seed):
     ref = signature(*_ycsb(R, mix_name, seed))
     cl, fleet = _ycsb(T, mix_name, seed, device="cpu")
     assert_same_run(ref, signature(cl, fleet))
     st = fleet.stats()
-    assert st["probe_invocations"] > 0 and st["fused_ticks"] > 0
+    assert st["fused_ticks"] > 0
+    if mix_name == "E":
+        assert st["scan_locate_invocations"] > 0
+        assert st["ord_leaf_verbs"] > 0
+        scans = [r for r in cl.scheduler.history if r.kind == "scan"]
+        assert scans and all(r.result.status == "OK" for r in scans)
+    else:
+        assert st["probe_invocations"] > 0
     if mix_name == "C":
         assert st["probe_hits"] > 0
 
@@ -215,7 +229,35 @@ def test_add_mn_under_load_matches_reference(seed, monkeypatch):
 
 
 def test_fleet_engine_rejects_scans():
+    """A scan wave on a cluster without the ordered keydir is rejected
+    with the typed error before anything is submitted; with the keydir,
+    a wave of scans and ranges from every client gives the reference's
+    results, fleet counters and run signature."""
     cl = T.FuseeCluster(T.DMConfig(), num_clients=2, device="cpu")
     be = cl.store(0, max_inflight=0).backend
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(T.OrderedIndexDisabled):
         cl.fleet().submit_wave([(be, [T.Op("scan", 1, 3)])])
+    assert cl.scheduler.inflight(0) == 0
+
+    def run(M, **kw):
+        n_clients = 6
+        cfg = fleet_dmconfig(n_clients, 80, ordered=True)
+        cl = M.FuseeCluster(_cfg(M, cfg), num_clients=n_clients, seed=5,
+                            **kw)
+        fleet = cl.fleet()
+        for k in range(80):
+            cl.scheduler.submit(k % n_clients, "insert", k, [k, 1 << 63])
+        fleet.run()
+        bes = [cl.store(c, max_inflight=0).backend for c in range(n_clients)]
+        futs = fleet.submit_wave(
+            [(bes[c], [M.Op.scan(c * 11, 9), M.Op.range(c * 5, c * 5 + 4)])
+             for c in range(n_clients)])
+        fleet.run()
+        return [[f.result().value for f in fs] for fs in futs], cl, fleet
+
+    want, *ref = run(R)
+    got, cl, fleet = run(T, device="cpu")
+    assert got == want
+    assert got[2][0] == [(k, [k, 1 << 63]) for k in range(22, 31)]
+    assert_same_run(signature(*ref), signature(cl, fleet))
+    assert fleet.stats()["scan_locate_invocations"] == 1

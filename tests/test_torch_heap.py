@@ -19,7 +19,7 @@ from repro_torch.core import DMPool as PortPool
 from repro_torch.core.heap import MemoryNode, RegionSlab
 
 from _torch_parity import (assert_same_typed, norm, norm_list,
-                           port_pool_like, slab_u64)
+                           port_pool_like, ref_state, slab_u64)
 
 M64 = (1 << 64) - 1
 
@@ -275,5 +275,11 @@ def test_pool_device_contract():
         with pytest.raises(RuntimeError, match="CUDA"):
             PortPool(cfg)
     assert PortPool(cfg, device="cpu").slab.buf.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A6"):
-        PortPool(PortConfig(ordered_index=True), device="cpu")
+    # the ordered keydir builds: its region, placement and initial leaf
+    # (cursor 1, head leaf of low 0) equal the reference pool's
+    ref = DMPool(DMConfig(num_mns=3, ordered_index=True))
+    port = PortPool(PortConfig(num_mns=3, ordered_index=True), device="cpu")
+    assert port.ordered_regions == ref.ordered_regions == [ref.num_regions - 1]
+    _assert_same_pools(ref, port)
+    port.load_numpy_state(**ref_state(ref))
+    _assert_same_pools(ref, port)

@@ -183,25 +183,37 @@ def test_engine_matches_reference(f32_pair):
     assert eng.metrics() == ref_eng.metrics()
 
 
-def test_engine_worker_crash_recovery_and_scale_out(f32_pair):
-    from repro_torch.core import ClientCrashed
-    _m, _params, port, tp = f32_pair
-    eng = ServeEngine(port, tp, max_batch=2, max_len=128,
-                      pool_cfg=PoolConfig(n_pages=256, n_buckets=64,
-                                          slots_per_bucket=4))
-    eng.submit(Request(rid=0, prompt=_prompt(B=1, S=70)[0], max_new=2))
+def _crash_scale_run(Eng, Req, Pool, model, params, crashed_error):
+    eng = Eng(model, params, max_batch=2, max_len=128,
+              pool_cfg=Pool(n_pages=256, n_buckets=64, slots_per_bucket=4))
+    eng.submit(Req(rid=0, prompt=_prompt(B=1, S=70)[0], max_new=2))
     eng.run(max_ticks=10)
     eng.crash_worker()
-    with pytest.raises(ClientCrashed):
+    with pytest.raises(crashed_error):
         eng.store.get(1)
     st = eng.recover_worker()
     assert st["chunks"] == 1 and st["redone"] == 0
     assert eng.scale_pool() == 4 and eng.health()["pool_shards"] == 5
-    eng.submit(Request(rid=1, prompt=_prompt(B=1, S=70)[0], max_new=2))
+    eng.submit(Req(rid=1, prompt=_prompt(B=1, S=70)[0], max_new=2))
     done = eng.run(max_ticks=10)
     assert [q.prefix_hits for q in done] == [0, 1]
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.list_prefixes(0, 8)
+    (key, _page), = eng.list_prefixes(0, 8)
+    return [eng.list_prefixes(0, 8), eng.list_prefixes(key, 64),
+            eng.list_prefixes(key + 1, 4), eng.list_prefixes(0, 0)]
+
+
+def test_engine_worker_crash_recovery_and_scale_out(f32_pair):
+    """Worker crash, recovery and pool scale-out, then ``list_prefixes``
+    (SCAN over the backend's keydir): equal listings on both engines."""
+    from repro.core import ClientCrashed as RefCrashed
+    from repro_torch.core import ClientCrashed
+    m, params, port, tp = f32_pair
+    got = _crash_scale_run(ServeEngine, Request, PoolConfig, port, tp,
+                           ClientCrashed)
+    want = _crash_scale_run(RefEngine, RefRequest, RefPoolCfg, m, params,
+                            RefCrashed)
+    assert got == want
+    assert got[1] == got[0] and got[2] == got[3] == []
 
 
 def test_block_hashes_bit_identical():

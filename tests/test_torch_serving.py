@@ -251,9 +251,35 @@ def test_device_backend_through_kvstore_matches_reference():
 
 
 def test_device_backend_scan_and_range_raise():
-    store = KVStore(DeviceBackend(PoolConfig(**POOL), device="cpu"))
-    store.put("a", b"1")
-    with pytest.raises(NotImplementedError, match="A6"):
-        store.scan(0, 5)
-    with pytest.raises(NotImplementedError, match="A6"):
-        store.range(0, 100)
+    """``tests/test_ordered.py::test_device_backend_scan_twin`` on both
+    packages (SCAN/RANGE through the backend's keydir, located by
+    ``leaf_probe``): equal results and pool state; a crashed backend raises
+    on a scan as on any op."""
+    from repro_torch.core import ClientCrashed
+
+    def twin(Store, Backend, Op_, pool):
+        store = Store(Backend(pool=pool))
+        for k in range(40):
+            store.insert(k, bytes([k % 250]) * 2)
+        out = [store.submit(Op_.scan(10, 8)).result()]
+        store.delete(12)
+        out.append(store.submit(Op_.scan(10, 8)).result())
+        out.append(store.submit(Op_.range(30, 35)).result())
+        out.append(store.submit(Op_.scan(-5, 3)).result())
+        out.append(store.submit(Op_.range(100, 200)).result())
+        return [(r.status, r.value) for r in out], store
+
+    cfg = dict(POOL, n_pages=256)
+    want, ref = twin(RefStore, RefBackend, RefOp,
+                     RefPool(RefCfg(**cfg), seed=1))
+    got, port = twin(KVStore, DeviceBackend, Op,
+                     FedPool(PoolConfig(**cfg), seed=1))
+    assert got == want
+    assert [k for k, _ in got[0][1]] == list(range(10, 18))
+    assert all(v == bytes([k % 250]) * 2 for k, v in got[0][1])
+    assert 12 not in [k for k, _ in got[1][1]]
+    assert [k for k, _ in got[2][1]] == list(range(30, 35))
+    _assert_same_pool(ref.backend.pool, port.backend.pool)
+    port.backend.crashed = True
+    with pytest.raises(ClientCrashed):
+        port.scan(0, 5)

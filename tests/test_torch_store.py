@@ -8,7 +8,7 @@
 * A seeded step-mode op stream with a ``FaultPlan`` (client crash and
   recovery, MN crash and Alg-3 auto-recovery) gives the same pool bytes,
   health, op history and per-MN bytes in both packages.
-* Features outside this slice fail loudly with their ROADMAP item.
+* Features outside the port so far fail loudly with their ROADMAP item.
 """
 import ast
 from pathlib import Path
@@ -193,10 +193,8 @@ def test_round_robin_and_replay_match_reference():
 
 # ------------------------------------------------------------ out of slice
 def test_features_outside_the_slice_raise():
+    # SCAN/RANGE are ported (tests/test_torch_ordered.py)
     cl = T.FuseeCluster(T.DMConfig(), num_clients=2, device="cpu")
-    kv = cl.store(0)
-    with pytest.raises(NotImplementedError, match="A6"):
-        kv.submit(T.Op("scan", 1, 4))
     for call, item in ((cl.attach_tracer, "A12"), (cl.race_findings, "A12"),
                        (cl.heap_audit, "A12"), (cl.metrics, "A11"),
                        (cl.profile, "A11")):
