@@ -5,7 +5,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
+It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (printing
+ptxas's registers, spills and warnings for the two attention libraries) and
+then:
 
 1. prints the card's name and power limit as ``nvidia-smi`` reports them;
 2. holds each kernel bit for bit against its plain PyTorch version on edge
@@ -51,8 +53,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    of the migration's dual-write windows and bulk copy to launch
    ``fleet_read`` once, and holds that run against the same run on ``cpu``;
 8. holds ``flash_attention`` and ``paged_attention`` against their plain
-   versions at the edges (bf16 and f32, GQA groups 1 and 4, ragged and
-   page-edge lengths; run right after step 2);
+   versions at the edges (bf16 and f32, GQA groups 1 and 4, ragged, tile-
+   edge, split-edge and page-edge lengths; run right after step 2);
 9. serves llama3-8b at full width and depth (``configs/llama3_8b.py``, bf16
    weights drawn from ``--seed``) through ``ServeEngine`` over the FUSEE
    prefix-cache pool: 8 requests of a shared 1024-token system prompt plus
@@ -73,7 +75,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    ``cpu`` with the same weights and requires equal tokens, prefix hits,
    per-key SEARCH results and prefix listings.
 
-It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
+Each kernel is timed per call (``time_ms``) and on the device
+(``device_time_ms``), and so is its library yardstick where one PyTorch call
+computes the same function (``library_ms``, ``library_device_ms``).  It
+prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before the last line.  It needs no network and imports nothing of JAX.
 """
@@ -347,6 +352,33 @@ def phase_build():
     log(f"[build] {len(libs)} kernel libraries ready in "
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(p.name for p in libs.values()))
+    for name in ("flash_attention", "paged_attention"):
+        for kernel, info in ptxas_report(build.build_log(name)):
+            log(f"[build] ptxas {name}: {kernel}: {info}")
+
+
+def ptxas_report(text: str):
+    """(kernel, registers / spills / warnings) for each entry function in
+    an ``nvcc -Xptxas -v`` log."""
+    import re
+    out, name, notes = [], None, []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(flash_fwd_wgmma|flash_fwd_f32|paged_split_mma|"
+                          r"paged_split_f32|paged_combine)_kernelI(\w*?)Li"
+                          r"(\d+)E", m.group(1))
+            dtype = ("bf16 " if "bfloat16" in k.group(2) else
+                     "f32 " if k.group(2) == "f" else "") if k else ""
+            name = f"{k.group(1)} {dtype}hd {k.group(3)}" if k else m.group(1)
+        elif name and ("spill" in line or "Used" in line):
+            notes.append(line.split("ptxas info    :")[-1].strip())
+            if "Used" in line:
+                out.append((name, "; ".join(notes)))
+                name, notes = None, []
+        elif "C75" in line:
+            out.append(("warning", line.split(":", 1)[-1].strip()[:160]))
+    return out
 
 
 def phase_edge_checks(dev):
@@ -620,7 +652,7 @@ def phase_kernel_timings(cl, capture, launches):
         max_abs_err=max_abs_err(a[0], b[0]),
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=1e3 * nbytes / MEM_BW_BYTES_PER_S, bound_by="bytes",
-        library_ms=None))
+        library_ms=None, library_device_ms=None))
     log(f"[kernels] race_lookup at the main path's largest probe: "
         f"{q.numel()} keys, table {tuple(table.shape)}, {rows_touched} rows "
         f"touched; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
@@ -644,6 +676,7 @@ def phase_kernel_timings(cl, capture, launches):
     dev_ms = device_time_ms(lambda: fleet_read(slab, base, start, total))
     plain_ms = time_ms(lambda: fleet_read_plain(slab, base, start, total))
     lib_ms = time_ms(lambda: torch.take(slab, addrs))
+    lib_dev_ms = device_time_ms(lambda: torch.take(slab, addrs))
     distinct = int(torch.unique(addrs).numel())
     nverbs = base.numel()
     nbytes = nverbs * 8 + (nverbs + 1) * 8 + distinct * 8 + total * 8
@@ -655,11 +688,12 @@ def phase_kernel_timings(cl, capture, launches):
         max_abs_err=max_abs_err(out_k, out_p),
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=1e3 * nbytes / MEM_BW_BYTES_PER_S, bound_by="bytes",
-        library_ms=lib_ms))
+        library_ms=lib_ms, library_device_ms=lib_dev_ms))
     log(f"[kernels] fleet_read at the main path's largest read sweep: "
         f"{nverbs} verbs, {total} words; kernel {ms:.4f} ms per call "
         f"({dev_ms:.4f} ms on the device), plain "
-        f"{plain_ms:.4f} ms, torch.take {lib_ms:.4f} ms, byte bound "
+        f"{plain_ms:.4f} ms, torch.take {lib_ms:.4f} ms ({lib_dev_ms:.4f} "
+        f"ms on the device; its addresses are built outside), byte bound "
         f"{rows[-1]['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s)")
     return rows
 
@@ -865,6 +899,7 @@ def leaf_probe_row(capture, launches):
     dev_ms = device_time_ms(lambda: leaf_probe(starts, lows))
     plain_ms = time_ms(lambda: leaf_probe_plain(starts, lows), iters=20)
     lib_ms = time_ms(library)
+    lib_dev_ms = device_time_ms(library)
     n, m = starts.numel(), lows.numel()
     nbytes = 8 * n + 8 * m + 4 * n
     row = dict(
@@ -875,12 +910,13 @@ def leaf_probe_row(capture, launches):
         max_abs_err=max_abs_err(got, want),
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=1e3 * nbytes / MEM_BW_BYTES_PER_S, bound_by="bytes",
-        library_ms=lib_ms)
+        library_ms=lib_ms, library_device_ms=lib_dev_ms)
     log(f"[kernels] leaf_probe at the YCSB-E run's largest wave: {n} starts "
         f"over {m} fence lows; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms "
         f"on the device), plain {plain_ms:.4f} ms, torch.searchsorted "
-        f"{lib_ms:.4f} ms, byte bound {row['bound_ms']:.6f} ms ({nbytes} B "
-        f"at 3.35 TB/s); equal to the plain version and to searchsorted")
+        f"{lib_ms:.4f} ms ({lib_dev_ms:.4f} ms on the device), byte bound "
+        f"{row['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s); equal to the "
+        f"plain version and to searchsorted")
     return row
 
 
@@ -1005,9 +1041,11 @@ def phase_serve_edge_checks(dev):
         worst[key] = (max(w[0], used), max(w[1], err), min(w[2], typical))
     for dt in (torch.bfloat16, torch.float32):
         for kv in (4, 1):                          # G = 1 and G = 4
-            cases = [(s, s, c) for s in (1, 63, 65, 1152)
+            cases = [(s, s, c) for s in (1, 63, 65, 127, 129, 257, 1152)
                      for c in (True, False)] + [(65, 300, False),
-                                                (300, 65, False)]
+                                                (300, 65, False),
+                                                (129, 300, True),
+                                                (300, 129, True)]
             for sq, skv, causal in cases:
                 q = rnd(1, 4, sq, 128, dt=dt)
                 k, v = rnd(1, kv, skv, 128, dt=dt), rnd(1, kv, skv, 128, dt=dt)
@@ -1027,14 +1065,15 @@ def phase_serve_edge_checks(dev):
         for H in (8, 32):                          # G = 1 and G = 4
             q = rnd(4, H, 128, dt=dt)
             kc, vc = (rnd(nb, tb, 4, 8, 128, dt=dt) for _ in range(2))
-            for vl in (1, tb - 1, tb, tb + 1, nb * tb):
+            for vl in (1, 63, 64, 65, 1167, tb - 1, tb, tb + 1, nb * tb):
                 note("paged_attention", dt, check_attn(
                     paged_attention, paged_attention_plain, q, kc, vc, vl,
                     what=f"paged_attention {dt} G={H // 8} valid_len={vl}"))
     torch.cuda.synchronize()
     log(f"[serve] edge checks: flash_attention (bf16/f32, G 1/4, Sq=Skv in "
-        f"1/63/65/1152 causal and not, Sq != Skv) and paged_attention "
-        f"(bf16/f32, G 1/4, valid_len 1/1023/1024/1025/2048) within "
+        f"1/63/65/127/129/257/1152 causal and not, Sq != Skv both ways) and "
+        f"paged_attention (bf16/f32, G 1/4, valid_len 1/63/64/65/1167/1023/"
+        f"1024/1025/2048, splits of 64) within "
         f"tolerance of their plain versions (f32: 2e-5 + 2e-5 x |ref|; "
         f"bf16: 2^-7 x |ref| + 2^-8 x the weighted mean of |v|, and 1e-4 + "
         f"2^-7 x |ref| with exact weights); largest share of the bound, max "
@@ -1278,9 +1317,15 @@ def profile_serve(model, params, prompts, steps: int = 4):
                 " recorded no device activity (device busy share not "
                 "measured)")
             return out
+        ours = "; ".join(
+            f"{e.key.split('<')[0].split('::')[-1]} x{e.count} "
+            f"{e.self_device_time_total / 1e3:.3f} ms" for e in kern
+            if any(n in e.key for n in ("flash_fwd", "paged_split",
+                                        "paged_combine")))
         log(f"[profile] {name}: wall {wall_us / 1e3:.2f} ms, device busy "
             f"{busy_us / 1e3:.2f} ms (share {busy_us / wall_us:.3f}, idle "
-            f"{1 - busy_us / wall_us:.3f}), {launches} kernels; top: {top}")
+            f"{1 - busy_us / wall_us:.3f}), {launches} kernels; attention "
+            f"kernels: {ours or 'none'}; top: {top}")
         return out
 
     _, cache = window("prefill (4 x 1152 tokens)",
@@ -1310,6 +1355,7 @@ def phase_serve_kernels(capture, launches):
     from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                      paged_attention, paged_attention_plain,
                                      race_lookup, race_lookup_plain)
+    from repro_torch.kernels.paged_attention.ops import split_plan
     found = []
     for keys, table in capture.races:
         a, b = race_lookup(keys, table), race_lookup_plain(keys, table)
@@ -1337,6 +1383,7 @@ def phase_serve_kernels(capture, launches):
                        iters=10)
     lib_err = float((sdpa(q, k, v, causal).float() - out.float()).abs().max())
     lib_ms = time_ms(lambda: sdpa(q, k, v, causal), iters=20)
+    lib_dev_ms = device_time_ms(lambda: sdpa(q, k, v, causal), iters=20)
     off = Skv - Sq
     pairs = (sum(min(Skv, max(0, i + off + 1)) for i in range(Sq))
              if causal else Sq * Skv)
@@ -1351,12 +1398,13 @@ def phase_serve_kernels(capture, launches):
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=1e3 * max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=lib_ms))
+        library_ms=lib_ms, library_device_ms=lib_dev_ms))
     log(f"[kernels] flash_attention at the serve run's largest prefill: q "
         f"{tuple(q.shape)}, k/v {tuple(k.shape)}, {q.dtype}, causal "
         f"{causal}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
         f"device), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
-        f"{lib_ms:.4f} ms (max abs diff {lib_err:.3g}); bound "
+        f"{lib_ms:.4f} ms ({lib_dev_ms:.4f} ms on the device; max abs diff "
+        f"{lib_err:.3g}); bound "
         f"{rows[-1]['bound_ms']:.6f} ms ({flops} FLOP at 989 TFLOP/s bf16, "
         f"{nbytes} B at 3.35 TB/s); max abs err {err:.3g} (mean |ref| "
         f"{typical:.3g}, at most {used:.3f} of the bound)")
@@ -1364,6 +1412,8 @@ def phase_serve_kernels(capture, launches):
     q, kc, vc, vl = capture.paged
     nb, tb, B, KV, hd = kc.shape
     H = q.shape[1]
+    check(split_plan(vl)[0] * B * KV >= 264, "paged_attention: fewer than "
+          "2 CTAs per SM at the serve shape")
     out, used, err, typical = check_attn(
         paged_attention, paged_attention_plain, q, kc, vc, vl,
         what="paged_attention on the serve run's inputs")
@@ -1386,6 +1436,8 @@ def phase_serve_kernels(capture, launches):
     lib_err = float((sdpa(qs, *views[0], False)[:, :, 0].float()
                      - out.float()).abs().max())
     lib_ms = time_ms(cold(lambda a, b: sdpa(qs, a, b, False), views))
+    lib_dev_ms = device_time_ms(cold(lambda a, b: sdpa(qs, a, b, False),
+                                     views))
     nbytes = q.element_size() * (2 * B * H * hd + 2 * B * KV * vl * hd)
     flops = 4 * B * H * hd * vl
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / MEM_BW_BYTES_PER_S
@@ -1397,13 +1449,15 @@ def phase_serve_kernels(capture, launches):
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=1e3 * max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=lib_ms))
+        library_ms=lib_ms, library_device_ms=lib_dev_ms))
+    splits, chunk = split_plan(vl)
     log(f"[kernels] paged_attention at the serve run's longest decode step: "
         f"q {tuple(q.shape)}, pages {tuple(kc.shape)}, {q.dtype}, valid_len "
-        f"{vl}; pages cold in L2 (6 copies in turn): kernel {ms:.4f} ms per "
+        f"{vl} ({splits} splits of {chunk} positions: {splits * B * KV} "
+        f"CTAs); pages cold in L2 (6 copies in turn): kernel {ms:.4f} ms per "
         f"call ({dev_ms:.4f} ms on the device), plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention "
-        f"{lib_ms:.4f} ms (max abs diff {lib_err:.3g}); byte bound "
+        f"scaled_dot_product_attention {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms "
+        f"on the device; max abs diff {lib_err:.3g}); byte bound "
         f"{rows[-1]['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s); max abs "
         f"err {err:.3g} (mean |ref| {typical:.3g}, at most {used:.3f} of the "
         f"bound)")

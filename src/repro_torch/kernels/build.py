@@ -2,10 +2,14 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 first use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
--Xcompiler -fPIC`` into ``build/kernels/`` at the root of the checkout
-(listed in ``.gitignore``), then bound with ``ctypes``.  The library name
-carries a hash of its source, so an edited kernel is always rebuilt.
-``build_all()`` starts one ``nvcc`` per source at once and waits for all.
+-Xcompiler -fPIC -Xptxas -v`` into ``build/kernels/`` at the root of the
+checkout (listed in ``.gitignore``), then bound with ``ctypes``.
+``flash_attention`` also links ``-lcuda``: it encodes its TMA tensor maps
+with ``cuTensorMapEncodeTiled`` from libcuda.  The library name carries a
+hash of its source and flags, so an edited kernel is always rebuilt; the
+compiler's output (ptxas's registers, shared memory and spills per kernel)
+is kept beside it as ``.log`` (``build_log``).  ``build_all()`` starts one
+``nvcc`` per source at once and waits for all.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc`` or a GPU.
@@ -25,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("race_lookup", "fleet_read", "leaf_probe", "flash_attention",
            "paged_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = {"flash_attention": ["-lcuda"]}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -43,8 +48,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
+    flags = NVCC_FLAGS + LINK_FLAGS.get(name, [])
     digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                          + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -54,7 +60,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+           *LINK_FLAGS.get(name, [])]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp, out
 
@@ -67,7 +74,14 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built ``csrc/<name>.cu`` (ptxas -v)."""
+    path = _lib_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def build_all(names: List[str] = SOURCES) -> Dict[str, Path]:

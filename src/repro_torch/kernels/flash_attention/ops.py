@@ -3,8 +3,10 @@ plain torch version.
 
 ``flash_attention(q, k, v, causal=True)`` takes q (B, H, Sq, hd) and k, v
 (B, KV, Skv, hd), all bfloat16 or all float32, and returns (B, H, Sq, hd)
-in q's dtype.  The causal mask is bottom-right aligned, as in the JAX
-package's ``flash_attention_ref``: query i sees key j iff
+in q's dtype (on the card in bf16, laid out like q: the kernel reads and
+writes strided views such as the model's transposes without a copy).  The
+causal mask is bottom-right aligned, as in the JAX package's
+``flash_attention_ref``: query i sees key j iff
 ``j <= i + Skv - Sq`` (prefill has Sq == Skv).  The tensors' device decides
 the path: CPU tensors take ``flash_attention_plain``; CUDA tensors launch
 ``csrc/flash_attention.cu`` (replacing the JAX package's
@@ -66,13 +68,21 @@ def _check_inputs(q, k, v):
                          f", v on {v.device}")
 
 
+def _tma_layout(x: torch.Tensor) -> bool:
+    """hd contiguous and every other stride a positive whole number of 16
+    bytes (what a TMA tensor map takes)."""
+    return x.stride(3) == 1 and all(
+        s > 0 and s * x.element_size() % 16 == 0 for s in x.stride()[:3])
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     """The C entry point of ``csrc/flash_attention.cu``, built and typed on
     first use."""
     fn = build.load("flash_attention").flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -89,17 +99,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV, Skv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    # the bf16 kernel reads any layout TMA can map (hd contiguous, strides
+    # of whole 16-byte units): the model's transposed views cost no copy
+    q, k, v = (x if bf16 and _tma_layout(x) else x.contiguous()
+               for x in (q, k, v))
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_attention: q, k and v must be 16-byte "
                          "aligned")
-    out = torch.empty_like(q)
+    out = torch.empty_like(q)                   # q's layout
     if out.numel() == 0:
         return out                              # nothing to launch
+    st = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out)
+                                    for s in (x.stride(2), x.stride(1),
+                                              x.stride(0))))
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), B, H, KV, Sq, Skv, hd, int(causal),
-                      hd ** -0.5, int(q.dtype == torch.bfloat16),
-                      build.stream_ptr(q.device))
+                      hd ** -0.5, int(bf16), st, build.stream_ptr(q.device))
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

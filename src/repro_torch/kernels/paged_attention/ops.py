@@ -9,7 +9,11 @@ h // (H / KV).  The tensors' device decides the path: CPU tensors take
 ``paged_attention_plain``; CUDA tensors launch ``csrc/paged_attention.cu``
 (replacing the JAX package's
 ``kernels/paged_attention/kernel.py::paged_attention_fwd``) or raise.
-Every kernel launch adds one to ``paged_attention.launches``.
+The CUDA path splits the valid positions into chunks of ``SPLIT_CHUNK``
+(``split_plan``): one CTA per (split, kv head, batch row) writes its
+online-softmax partial (m, l, o) in f32 to scratch allocated here, and a
+combine kernel in the same call sums the splits.  Every call that launches
+adds one to ``paged_attention.launches``.
 """
 from __future__ import annotations
 
@@ -20,11 +24,19 @@ import torch
 
 from .. import build
 
-__all__ = ["paged_attention", "paged_attention_plain"]
+__all__ = ["paged_attention", "paged_attention_plain", "split_plan"]
 
 HEAD_DIMS = (16, 128)    # instantiated: llama3-8b and its reduced form
 MAX_GROUP = 8                       # query heads per kv head in the kernel
 NEG_INF = -1e30                     # masked score, as in the reference
+SPLIT_CHUNK = 64                    # positions per split: 4 warps x 2 tiles
+
+
+def split_plan(valid_len: int, chunk: int = SPLIT_CHUNK) -> tuple:
+    """(splits, chunk): split s covers cache positions [s * chunk,
+    min((s + 1) * chunk, valid_len)), so no split starts at or past
+    ``valid_len`` and every split has a finite row max."""
+    return -(-int(valid_len) // chunk), chunk
 
 
 def paged_attention_plain(q: torch.Tensor, kc: torch.Tensor,
@@ -73,7 +85,7 @@ def _launcher():
     """The C entry point of ``csrc/paged_attention.cu``, built and typed on
     first use."""
     fn = build.load("paged_attention").paged_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -95,14 +107,21 @@ def paged_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         raise ValueError(f"paged_attention: {H // KV} query heads per kv "
                          f"head, the kernel takes at most {MAX_GROUP}")
     q, kc, vc = q.contiguous(), kc.contiguous(), vc.contiguous()
-    if kc.data_ptr() % 16 or vc.data_ptr() % 16:
-        raise ValueError("paged_attention: kc and vc must be 16-byte aligned")
+    if q.data_ptr() % 16 or kc.data_ptr() % 16 or vc.data_ptr() % 16:
+        raise ValueError("paged_attention: q, kc and vc must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out                              # nothing to launch
+    vl = min(int(valid_len), nb * tb)
+    splits, chunk = split_plan(vl, SPLIT_CHUNK)
+    part_o = torch.empty(B * H * splits * hd, dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty(B * H * splits * 2, dtype=torch.float32,
+                          device=q.device)
     err = _launcher()(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                      out.data_ptr(), B, H, KV, hd,
-                      min(int(valid_len), nb * tb), hd ** -0.5,
+                      out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
+                      B, H, KV, hd, vl, chunk, splits, hd ** -0.5,
                       int(q.dtype == torch.bfloat16),
                       build.stream_ptr(q.device))
     build.check(err, "paged_attention")

@@ -272,6 +272,17 @@ def _randn(rng, shape, dt):
     (1, 8, 2, 300, 300, 128, True),
     (1, 4, 1, 100, 37, 128, False),
     (1, 4, 1, 70, 30, 16, True),        # rows with no visible key
+    # the wgmma kernel's 128-row q and k/v tiles: ragged by one either way
+    (1, 4, 4, 127, 127, 128, True),     # G = 1
+    (1, 8, 2, 128, 128, 16, True),      # G = 4
+    (1, 8, 1, 129, 129, 128, True),     # G = 8
+    (1, 8, 1, 255, 255, 16, True),
+    (1, 4, 1, 257, 257, 128, True),
+    (1, 32, 8, 1152, 1152, 128, True),  # the serve shape's heads, B = 1
+    (2, 8, 8, 1152, 1152, 16, True),
+    (1, 8, 1, 129, 300, 128, True),     # Sq < Skv
+    (1, 4, 2, 300, 129, 128, True),     # Sq > Skv: rows with no visible key
+    (1, 8, 1, 200, 70, 128, True),
 ])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(B, H, KV, Sq, Skv, hd, causal,
@@ -292,6 +303,8 @@ def test_flash_attention_kernel_matches_plain(B, H, KV, Sq, Skv, hd, causal,
 
 @pytest.mark.parametrize("Sq,Skv,causal", [
     (65, 65, True), (300, 300, True), (1152, 1152, True), (65, 300, False),
+    (127, 127, True), (129, 129, True), (257, 257, True), (129, 300, True),
+    (300, 129, True),
 ])
 def test_flash_attention_bf16_kernel_masks_to_the_key(Sq, Skv, causal):
     """With attention weights exact in bf16, the bf16 kernel equals the
@@ -306,6 +319,24 @@ def test_flash_attention_bf16_kernel_masks_to_the_key(Sq, Skv, causal):
     got = flash_attention(q, k, v, causal=causal).float()
     want = flash_attention_plain(q, k, v, causal=causal).float()
     assert bool(((got - want).abs() <= 1e-4 + 2 ** -7 * want.abs()).all())
+
+
+@pytest.mark.parametrize("hd", [16, 128])
+def test_flash_attention_bf16_kernel_reads_strided_views(hd):
+    """The bf16 kernel maps q, k, v with their own strides: the model's
+    (B, S, heads, hd) tensors seen through transpose(1, 2), and a k/v
+    sliced out of a wider cache, give the plain version's output, in q's
+    layout."""
+    require_cuda()
+    rng = np.random.default_rng(hd)
+    q = _randn(rng, (2, 300, 8, hd), torch.bfloat16).transpose(1, 2)
+    k = _randn(rng, (2, 300, 2, hd), torch.bfloat16).transpose(1, 2)
+    v = _randn(rng, (2, 2, 400, hd), torch.bfloat16)[:, :, 50:350]
+    got = flash_attention(q, k, v, causal=True)
+    assert got.stride() == q.stride()
+    want = flash_attention_plain(q, k, v, causal=True)
+    _assert_attn_close(got, want,
+                       flash_attention_plain(q, k, v.abs(), causal=True))
 
 
 def test_flash_attention_kernel_raises_on_unsupported_head_dim():
@@ -327,6 +358,12 @@ def test_flash_attention_kernel_raises_on_unsupported_head_dim():
     (2, 1024, 4, 8, 32, 128, 1025),
     (2, 64, 2, 1, 4, 16, 128),
     (2, 64, 2, 1, 4, 16, 500),          # valid_len past the pages: clamped
+    # split edges (SPLIT_CHUNK = 64 positions a split)
+    (2, 1024, 4, 8, 32, 128, 63),
+    (2, 1024, 4, 8, 32, 128, 64),
+    (2, 1024, 4, 8, 32, 128, 65),
+    (2, 1024, 4, 8, 32, 128, 1167),     # the serve run's longest step
+    (64, 256, 1, 8, 64, 128, 16384),    # 256 splits, G = 8: several waves
 ])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel_matches_plain(nb, tb, B, KV, H, hd, vl, dt):
@@ -345,6 +382,23 @@ def test_paged_attention_kernel_matches_plain(nb, tb, B, KV, H, hd, vl, dt):
         kc[vl // tb + 1:] = 999.0
         vc.view(nb * tb, B, KV, hd)[vl:] = float("nan")
         torch.testing.assert_close(paged_attention(q, kc, vc, vl), got)
+
+
+@pytest.mark.parametrize("chunk", [8, 200])
+@pytest.mark.parametrize("vl", [1, 199, 1167])
+def test_paged_attention_kernel_at_other_split_chunks(monkeypatch, chunk, vl):
+    """Splits of one tile and splits whose warps wrap their rings: the
+    kernel takes any chunk the plan gives it."""
+    require_cuda()
+    from repro_torch.kernels.paged_attention import ops
+    monkeypatch.setattr(ops, "SPLIT_CHUNK", chunk)
+    rng = np.random.default_rng(chunk + vl)
+    q = _randn(rng, (4, 32, 128), torch.bfloat16)
+    kc = _randn(rng, (2, 1024, 4, 8, 128), torch.bfloat16)
+    vc = _randn(rng, (2, 1024, 4, 8, 128), torch.bfloat16)
+    got = paged_attention(q, kc, vc, vl)
+    _assert_attn_close(got, paged_attention_plain(q, kc, vc, vl),
+                       paged_attention_plain(q, kc, vc.abs(), vl))
 
 
 def test_serve_run_on_cuda_matches_cpu():

@@ -7,10 +7,16 @@
 * Fused-tick READ sweep: the plain ``fleet_read`` against ``fleet_read_ref``,
   ``fleet_read_fwd`` in interpret mode and ``DMPool._fused_read_sweep`` of a
   live reference pool.
+* Decode attention's split plan: the CUDA kernel's algorithm (splits of
+  ``split_plan``, four warps' online softmax over tiles of 8 positions, the
+  in-CTA merge and the combine over splits) written out in torch, against
+  ``paged_attention_plain``.
 
-Integer paths: tolerance 0.  The CUDA launches are in
-``tests/test_torch_cuda.py``.
+Integer paths: tolerance 0; the split plan's f32 arithmetic: 2e-5.  The
+CUDA launches are in ``tests/test_torch_cuda.py``.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,10 +30,12 @@ from repro.kernels.race_lookup.ref import race_lookup_ref
 from repro_torch.core import shadow as port_shadow
 from repro_torch.kernels import (KERNELS, flash_attention, fleet_read,
                                  fleet_read_plain, leaf_probe,
-                                 paged_attention, race_lookup,
-                                 race_lookup_plain, reset_launches)
+                                 paged_attention, paged_attention_plain,
+                                 race_lookup, race_lookup_plain,
+                                 reset_launches)
+from repro_torch.kernels.paged_attention.ops import SPLIT_CHUNK, split_plan
 
-from _torch_parity import port_pool_like
+from _torch_parity import attn_bound, port_pool_like
 
 EDGE_KEYS = np.array([0, 1 << 31, (1 << 32) - 1, (1 << 31) - 1, 1],
                      np.uint32)
@@ -207,3 +215,80 @@ def test_fleet_read_matches_pool_sweep():
         if w is not None:
             assert g.dtype == np.uint64 and np.array_equal(w, g)
     assert np.array_equal(ref.mn_bytes, port.mn_bytes)
+
+
+# ------------------------------------------- decode attention's split plan
+WARPS, TILE = 4, 8                 # csrc/paged_attention.cu's kWarps, kTile
+
+
+def _merge(ms, ls, os_):
+    """Rescale online-softmax states (m, l, o) in log2 units to their
+    common max and sum them, as the kernel's merges do (a state that saw
+    no position has m = -inf and weighs 0)."""
+    m = torch.stack(ms).amax(0)
+    mref = torch.where(m == -math.inf, torch.zeros_like(m), m)
+    w = [torch.exp2(mi - mref) for mi in ms]
+    return (m, sum(wi * li for wi, li in zip(w, ls)),
+            sum(wi[..., None] * oi for wi, oi in zip(w, os_)))
+
+
+def _paged_split_kernel_in_torch(q, kc, vc, valid_len):
+    """``csrc/paged_attention.cu`` step by step in f32: q pre-scaled by
+    hd^-0.5 log2(e); per split of the plan, warp w runs an online softmax
+    over tiles w, w + 4, ... of 8 positions; the CTA merges its warps; the
+    combine merges the splits and divides by l."""
+    nb, tb, B, KV, hd = kc.shape
+    G = q.shape[1] // KV
+    vl = min(valid_len, nb * tb)
+    splits, chunk = split_plan(vl)
+    k = kc.float().reshape(nb * tb, B, KV, hd)
+    v = vc.float().reshape(nb * tb, B, KV, hd)
+    qs = q.float().reshape(B, KV, G, hd) * (hd ** -0.5 * math.log2(math.e))
+    parts = []
+    for s in range(splits):
+        p0, p1 = s * chunk, min(s * chunk + chunk, vl)
+        assert p0 < vl                  # every split has a valid position
+        ntiles = -(-(p1 - p0) // TILE)
+        warps = []
+        for w in range(WARPS):
+            m = torch.full((B, KV, G), -math.inf)
+            l, o = torch.zeros(B, KV, G), torch.zeros(B, KV, G, hd)
+            for j in range(w, ntiles, WARPS):
+                a, e = p0 + j * TILE, min(p0 + (j + 1) * TILE, p1)
+                sc = torch.einsum("bkgd,tbkd->bkgt", qs, k[a:e])
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(sc - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                o = o * alpha[..., None] + torch.einsum("bkgt,tbkd->bkgd",
+                                                        p, v[a:e])
+                m = m_new
+            warps.append((m, l, o))
+        parts.append(_merge(*zip(*warps)))
+    _m, l, o = _merge(*zip(*parts))
+    return (o / l.clamp_min(1e-30)[..., None]).reshape(B, KV * G, hd)
+
+
+@pytest.mark.parametrize("vl", [1, SPLIT_CHUNK - 1, SPLIT_CHUNK,
+                                SPLIT_CHUNK + 1, 1167, 2048, 5000])
+@pytest.mark.parametrize("B,KV,H,hd", [(2, 2, 8, 128), (1, 1, 8, 16),
+                                       (2, 4, 4, 16)])
+def test_paged_split_plan_and_combine_match_plain(vl, B, KV, H, hd):
+    rng = np.random.default_rng(vl + hd)
+    q, kc, vc = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                 for s in ((B, H, hd), (2, 1024, B, KV, hd),
+                           (2, 1024, B, KV, hd)))
+    want = paged_attention_plain(q, kc, vc, vl)
+    got = _paged_split_kernel_in_torch(q, kc, vc, vl)
+    assert bool(((got - want).abs() <= attn_bound(want, None)).all())
+
+
+def test_split_plan_covers_valid_len_exactly():
+    """Splits tile [0, valid_len): none starts at or past it, the last
+    ends at it, and the serve run's longest step gives >= 264 CTAs (2 per
+    SM of an H100) over its 4 x 8 (batch, kv head) groups."""
+    for vl in list(range(1, 1200)) + [2048, 5000, 16384, 1 << 20]:
+        splits, chunk = split_plan(vl)
+        assert chunk == SPLIT_CHUNK
+        assert (splits - 1) * chunk < vl <= splits * chunk
+    assert split_plan(1167)[0] * 4 * 8 >= 264
