@@ -6,8 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (printing
-ptxas's registers, spills and warnings for the two attention libraries) and
-then:
+ptxas's registers, shared memory, spills and warnings for the attention,
+``leaf_probe`` and ``fleet_read`` libraries) and then:
 
 1. prints the card's name and power limit as ``nvidia-smi`` reports them;
 2. holds each kernel bit for bit against its plain PyTorch version on edge
@@ -20,7 +20,8 @@ then:
    clients through ``FleetEngine.submit_wave``: a preload, then YCSB-A, then
    YCSB-C.  The kernels' launch counts are set to 0 just before and read
    just after; both must be > 0.  Each kernel is then checked and timed on
-   the inputs the run gave it;
+   the inputs the run gave it (``fleet_read`` through the pool's own entry,
+   ``fleet_read_tick``, beside its public wrapper and ``torch.take``);
 4. audits the drained store: every acknowledged write reads back through GET
    with a value that may legally be last, and every key's index slot is
    identical on both replicas;
@@ -36,9 +37,12 @@ then:
    key and misses exactly as many acknowledged keys as the clients report
    dropped (``ord_full_drops``: the keydir protocol's losses, which
    ``tests/test_torch_ordered.py`` holds to the JAX package's; printed with
-   the NOT_FOUND scans); the keydir replicas equal.  ``leaf_probe`` is then
-   checked and timed on the run's largest locate wave beside
-   ``torch.searchsorted``;
+   the NOT_FOUND scans); the keydir replicas equal.  Every
+   ``locate_leaves`` call and every locate wave is timed on the host
+   clock.  ``leaf_probe`` is then checked and timed on the run's largest
+   locate wave beside ``torch.searchsorted``, and at one start against the
+   run's median fence count, each both on device tensors and as the locate
+   path launches it (starts and answers in pinned host memory);
 4c. runs ``tests/_torch_parity.py``'s small YCSB-E runs on ``cuda`` and on
    ``cpu``: one with a client crashed inside a leaf split (equal
    signatures, its audit on the card), and 4b's traffic at 64 clients and
@@ -352,7 +356,8 @@ def phase_build():
     log(f"[build] {len(libs)} kernel libraries ready in "
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(p.name for p in libs.values()))
-    for name in ("flash_attention", "paged_attention"):
+    for name in ("flash_attention", "paged_attention", "leaf_probe",
+                 "fleet_read"):
         for kernel, info in ptxas_report(build.build_log(name)):
             log(f"[build] ptxas {name}: {kernel}: {info}")
 
@@ -370,7 +375,9 @@ def ptxas_report(text: str):
                           r"(\d+)E", m.group(1))
             dtype = ("bf16 " if "bfloat16" in k.group(2) else
                      "f32 " if k.group(2) == "f" else "") if k else ""
-            name = f"{k.group(1)} {dtype}hd {k.group(3)}" if k else m.group(1)
+            plain = re.search(r"\d+([a-z][a-z_]*_kernel)E", m.group(1))
+            name = (f"{k.group(1)} {dtype}hd {k.group(3)}" if k else
+                    plain.group(1) if plain else m.group(1))
         elif name and ("spill" in line or "Used" in line):
             notes.append(line.split("ptxas info    :")[-1].strip())
             if "Used" in line:
@@ -481,16 +488,17 @@ def phase_leaf_probe_edges(dev):
 
 class Capture:
     """Keeps the largest inputs each kernel's wrapper saw during the main
-    path (for the checks and timings at the path's own shapes).  It holds
-    references, not copies, so the timed run does no extra device work: the
-    port never writes a probe's keys or table, or a sweep's coordinates,
-    after the call.  The wrappers themselves still launch and count."""
+    path (for the checks and timings at the path's own shapes).  A probe's
+    keys and table are held by reference (the port never writes them after
+    the call); a sweep's coordinates are cloned when they are the largest
+    so far, since the pool reuses its upload and staging buffers.  The
+    wrappers themselves still launch and count."""
 
     def __init__(self):
         import repro_torch.core.api as api
         import repro_torch.core.heap as heap
         self.api, self.heap = api, heap
-        self.orig_rl, self.orig_fr = api.race_lookup, heap.fleet_read
+        self.orig_rl, self.orig_fr = api.race_lookup, heap.fleet_read_tick
         self.rl = None
         self.fr = None
         self.rl_calls = self.fr_calls = 0
@@ -501,17 +509,17 @@ class Capture:
                 self.rl = (keys, table)
             return self.orig_rl(keys, table)
 
-        def fleet_read(slab, base, start, total):
+        def fleet_read_tick(slab, buf, base, start, total, *rest):
             self.fr_calls += 1
             if self.fr is None or total > self.fr[2]:
-                self.fr = (base, start, total)
-            return self.orig_fr(slab, base, start, total)
+                self.fr = (buf[base].clone(), buf[start].clone(), total)
+            return self.orig_fr(slab, buf, base, start, total, *rest)
 
-        api.race_lookup, heap.fleet_read = race_lookup, fleet_read
+        api.race_lookup, heap.fleet_read_tick = race_lookup, fleet_read_tick
 
     def close(self):
         self.api.race_lookup = self.orig_rl
-        self.heap.fleet_read = self.orig_fr
+        self.heap.fleet_read_tick = self.orig_fr
 
 
 def phase_fleet(args, device="cuda"):
@@ -659,26 +667,41 @@ def phase_kernel_timings(cl, capture, launches):
         f"device), plain {plain_ms:.4f} ms, byte bound "
         f"{rows[-1]['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s)")
 
-    # fleet_read at the largest read sweep the main path made
+    # fleet_read at the largest read sweep the main path made, through the
+    # pool's own entry (coordinates in one upload buffer, words into a
+    # staging buffer), beside the public wrapper
+    import repro_torch.kernels.fleet_tick.ops as fr_ops
     slab = cl.pool.slab.buf
     base, start, total = capture.fr
-    out_k = fleet_read(slab, base, start, total)
+    nverbs = base.numel()
+    buf = torch.cat([base, start])
+    stage = torch.empty(total, dtype=torch.int64, device=slab.device)
+
+    def tick():
+        fr_ops.fleet_read_tick(slab, buf, slice(0, nverbs),
+                               slice(nverbs, 2 * nverbs + 1), total, stage,
+                               0, slab.device)
+
+    tick()
+    out_k = stage.clone()
     out_p = fleet_read_plain(slab, base, start, total)
     torch.cuda.synchronize()
     check(torch.equal(out_k, out_p), "fleet_read differs from its plain "
           "version on the main path's inputs")
+    check(torch.equal(fleet_read(slab, base, start, total), out_p),
+          "fleet_read's public wrapper differs from its plain version")
     ln = start[1:] - start[:-1]
     addrs = (torch.repeat_interleave(base - start[:-1], ln,
                                      output_size=total)
              + torch.arange(total, device=slab.device))
     check(torch.equal(torch.take(slab, addrs), out_k), "torch.take differs")
-    ms = time_ms(lambda: fleet_read(slab, base, start, total))
-    dev_ms = device_time_ms(lambda: fleet_read(slab, base, start, total))
+    ms = time_ms(tick)
+    dev_ms = device_time_ms(tick)
+    wrapper_ms = time_ms(lambda: fleet_read(slab, base, start, total))
     plain_ms = time_ms(lambda: fleet_read_plain(slab, base, start, total))
     lib_ms = time_ms(lambda: torch.take(slab, addrs))
     lib_dev_ms = device_time_ms(lambda: torch.take(slab, addrs))
     distinct = int(torch.unique(addrs).numel())
-    nverbs = base.numel()
     nbytes = nverbs * 8 + (nverbs + 1) * 8 + distinct * 8 + total * 8
     rows.append(dict(
         name="fleet_read", route="cuda",
@@ -688,12 +711,14 @@ def phase_kernel_timings(cl, capture, launches):
         max_abs_err=max_abs_err(out_k, out_p),
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=1e3 * nbytes / MEM_BW_BYTES_PER_S, bound_by="bytes",
-        library_ms=lib_ms, library_device_ms=lib_dev_ms))
+        library_ms=lib_ms, library_device_ms=lib_dev_ms,
+        wrapper_ms=wrapper_ms))
     log(f"[kernels] fleet_read at the main path's largest read sweep: "
-        f"{nverbs} verbs, {total} words; kernel {ms:.4f} ms per call "
-        f"({dev_ms:.4f} ms on the device), plain "
-        f"{plain_ms:.4f} ms, torch.take {lib_ms:.4f} ms ({lib_dev_ms:.4f} "
-        f"ms on the device; its addresses are built outside), byte bound "
+        f"{nverbs} verbs, {total} words; the pool's entry {ms:.4f} ms per "
+        f"call ({dev_ms:.4f} ms on the device), the public wrapper "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.take {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms on the device; its "
+        f"addresses are built outside), byte bound "
         f"{rows[-1]['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s)")
     return rows
 
@@ -733,27 +758,54 @@ def phase_audit(cl, fleet, acked):
 
 # ------------------------------------------------------- YCSB-E (keydir)
 class LeafCapture:
-    """Keeps the largest ``leaf_probe`` inputs of the YCSB-E run (its
-    largest locate wave) by reference — the port builds new starts and lows
-    tensors for every call and never writes them afterwards — and counts
-    the wrapper's calls."""
+    """Over the YCSB-E run: counts the ``leaf_probe`` wrapper's calls and
+    the fences M of each; keeps clones of the largest wave's inputs and of
+    the widest fence table (the port's starts go through a reused staging
+    buffer, and a client's device lows are refreshed in place); and times
+    every ``locate_leaves`` call and every locate wave on the host clock."""
 
-    def __init__(self):
+    def __init__(self, fleet):
         import repro_torch.core.ordered as O
-        self.O, self.orig = O, O.leaf_probe
-        self.big = None
-        self.calls = 0
+        self.O, self.fleet = O, fleet
+        self.orig, self.orig_locate = O.leaf_probe, O.locate_leaves
+        self.big = self.widest = None
+        self.calls = self.locates = self.waves = 0
+        self.m = []
+        self.locate_s = self.wave_s = 0.0
 
-        def leaf_probe(starts, lows):
+        def leaf_probe(starts, lows, out=None):
             self.calls += 1
+            self.m.append(lows.numel())
             if self.big is None or starts.numel() > self.big[0].numel():
-                self.big = (starts, lows)
-            return self.orig(starts, lows)
+                # the starts may sit in pinned host memory: keep a device copy
+                self.big = (starts.clone().to(lows.device), lows.clone())
+            if self.widest is None or lows.numel() > self.widest.numel():
+                self.widest = lows.clone()
+            return self.orig(starts, lows, out=out)
 
-        O.leaf_probe = leaf_probe
+        def locate_leaves(client, starts):
+            t0 = time.perf_counter()
+            out = self.orig_locate(client, starts)
+            self.locate_s += time.perf_counter() - t0
+            self.locates += 1
+            return out
+
+        orig_wave = fleet.locate_wave
+
+        def locate_wave(wave):
+            t0 = time.perf_counter()
+            out = orig_wave(wave)
+            self.wave_s += time.perf_counter() - t0
+            self.waves += 1
+            return out
+
+        O.leaf_probe, O.locate_leaves = leaf_probe, locate_leaves
+        fleet.locate_wave = locate_wave
 
     def close(self):
         self.O.leaf_probe = self.orig
+        self.O.locate_leaves = self.orig_locate
+        del self.fleet.locate_wave
 
 
 def _profile_delta(fleet, before):
@@ -813,7 +865,7 @@ def phase_ycsbe(args, device="cuda"):
         values[key] = v
         return Op.insert(key, v)
 
-    capture = LeafCapture()
+    capture = LeafCapture(fleet)
     reset_launches()
     try:
         sync = torch.cuda.synchronize
@@ -856,6 +908,11 @@ def phase_ycsbe(args, device="cuda"):
         f"{st['scan_locate_invocations'] - loc0} ({st['scan_locate_keys']} "
         f"starts), leaf verbs {st['ord_leaf_verbs']}; host "
         f"time per tick " + _profile_delta(fleet, prof0))
+    log(f"[ycsbe] host time over preload and run: {capture.locates} "
+        f"locate_leaves calls, {capture.locate_s:.3f} s "
+        f"({1e3 * capture.locate_s / max(capture.locates, 1):.4f} ms each); "
+        f"{capture.waves} locate waves, {capture.wave_s:.3f} s "
+        f"({1e3 * capture.wave_s / max(capture.waves, 1):.4f} ms each)")
     log(f"[ycsbe] kernel launches over preload and run: {launches}")
     for k in ("leaf_probe", "fleet_read"):
         check(launches[k] > 0, f"kernel {k} was not launched on the YCSB-E "
@@ -877,7 +934,13 @@ def phase_ycsbe(args, device="cuda"):
 def leaf_probe_row(capture, launches):
     """leaf_probe held against its plain version and timed on the largest
     wave of the YCSB-E run, beside ``torch.searchsorted`` on the
-    sign-flipped words (the library yardstick, never used by the port)."""
+    sign-flipped words (the library yardstick, never used by the port);
+    then at one start against the run's median fence count (the
+    ``_locate`` case), and the run's host time per ``locate_leaves``.  Both
+    shapes are timed on device tensors and as the locate path launches
+    them: starts and answers in pinned host memory, which the kernel reads
+    and writes over the bus, beside the lows on the device."""
+    import statistics
     import torch
     from repro_torch.kernels import leaf_probe, leaf_probe_plain
     from repro_torch.kernels.leaf_probe.ops import flip_sign
@@ -900,6 +963,30 @@ def leaf_probe_row(capture, launches):
     plain_ms = time_ms(lambda: leaf_probe_plain(starts, lows), iters=20)
     lib_ms = time_ms(library)
     lib_dev_ms = device_time_ms(library)
+    m_med = int(statistics.median(capture.m))
+    m_max = max(capture.m)
+    one, lows1 = starts[:1].clone(), capture.widest[:m_med].clone()
+    got1 = leaf_probe(one, lows1)
+    torch.cuda.synchronize()
+    check(torch.equal(got1, leaf_probe_plain(one, lows1)), "leaf_probe "
+          "differs from its plain version at one start")
+    n1_ms = time_ms(lambda: leaf_probe(one, lows1))
+    n1_dev_ms = device_time_ms(lambda: leaf_probe(one, lows1))
+    # as the locate path launches it: pinned host starts and answers
+    h_st, h_one = starts.cpu().pin_memory(), one.cpu().pin_memory()
+    h_out = torch.empty(starts.numel(), dtype=torch.int32).pin_memory()
+    h_out1 = torch.empty(1, dtype=torch.int32).pin_memory()
+    leaf_probe(h_st, lows, out=h_out)
+    leaf_probe(h_one, lows1, out=h_out1)
+    torch.cuda.synchronize()
+    check(torch.equal(h_out, want.cpu()) and torch.equal(h_out1, got1.cpu()),
+          "leaf_probe on pinned host starts and answers differs from its "
+          "plain version")
+    pinned_dev_ms = device_time_ms(lambda: leaf_probe(h_st, lows, out=h_out))
+    n1_pinned_ms = time_ms(lambda: leaf_probe(h_one, lows1, out=h_out1))
+    n1_pinned_dev_ms = device_time_ms(
+        lambda: leaf_probe(h_one, lows1, out=h_out1))
+    locate_ms = 1e3 * capture.locate_s / max(capture.locates, 1)
     n, m = starts.numel(), lows.numel()
     nbytes = 8 * n + 8 * m + 4 * n
     row = dict(
@@ -910,13 +997,27 @@ def leaf_probe_row(capture, launches):
         max_abs_err=max_abs_err(got, want),
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=1e3 * nbytes / MEM_BW_BYTES_PER_S, bound_by="bytes",
-        library_ms=lib_ms, library_device_ms=lib_dev_ms)
+        library_ms=lib_ms, library_device_ms=lib_dev_ms,
+        pinned_device_ms=pinned_dev_ms, n1_ms=n1_ms,
+        n1_device_ms=n1_dev_ms, n1_pinned_ms=n1_pinned_ms,
+        n1_pinned_device_ms=n1_pinned_dev_ms, m_median=m_med, m_max=m_max,
+        locate_host_ms=locate_ms, locate_host_s=capture.locate_s,
+        locates=capture.locates)
     log(f"[kernels] leaf_probe at the YCSB-E run's largest wave: {n} starts "
         f"over {m} fence lows; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms "
-        f"on the device), plain {plain_ms:.4f} ms, torch.searchsorted "
-        f"{lib_ms:.4f} ms ({lib_dev_ms:.4f} ms on the device), byte bound "
+        f"on the device; {pinned_dev_ms:.4f} with pinned host starts and "
+        f"answers, as the path launches it), plain "
+        f"{plain_ms:.4f} ms, torch.searchsorted {lib_ms:.4f} ms "
+        f"({lib_dev_ms:.4f} ms on the device), byte bound "
         f"{row['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s); equal to the "
         f"plain version and to searchsorted")
+    log(f"[kernels] leaf_probe at one start over the run's median {m_med} "
+        f"fence lows (largest {m_max}, {len(capture.m)} calls): "
+        f"{n1_ms:.4f} ms per call, {n1_dev_ms:.6f} ms on the device; as the "
+        f"path launches it (pinned host start and answer) {n1_pinned_ms:.4f} "
+        f"ms per call, {n1_pinned_dev_ms:.6f} ms on the device; one "
+        f"whole locate_leaves call {locate_ms:.4f} ms of host time "
+        f"({capture.locates} calls, {capture.locate_s:.3f} s)")
     return row
 
 

@@ -32,6 +32,7 @@ from .events import (CAUSE_CAS_LOST, CAUSE_FP_COLLISION, CAUSE_FULL,
                      CAUSE_LOSE_POLL, CAUSE_NONE, CAUSE_STALE_EPOCH,
                      EXISTS, FULL, NOT_FOUND, OK, MasterCall, OpResult, Phase,
                      Verb)
+from .fences import FenceCache
 from .heap import FIRST_DATA_REGION, INDEX_REGION, META_REGION, \
     META_WORDS_PER_CLIENT, DMConfig, DMPool
 from .rng import SimRng
@@ -140,11 +141,22 @@ class FuseeClient:
         # ordered-keydir fence cache: leaf_id -> low key (append-only
         # facts — a leaf's low never changes and leaves never merge; see
         # core/ordered.py).  Empty until the first scan/ensure bootstraps.
-        self.ord_fences: Dict[int, int] = {}
+        self.ord_fences = FenceCache()
         self.ord_full_drops = 0   # inserts whose keydir entry hit ORD FULL
         self.crashed = False
 
     # ------------------------------------------------------------------ util
+    @property
+    def ord_fences(self) -> FenceCache:
+        return self._ord_fences
+
+    @ord_fences.setter
+    def ord_fences(self, fences):
+        """Any mapping assigned becomes a ``FenceCache`` (core/fences.py),
+        so the sorted view and its device copy always follow it."""
+        self._ord_fences = fences if isinstance(fences, FenceCache) \
+            else FenceCache(fences)
+
     @property
     def r(self) -> int:
         return len(self.pool.placement[INDEX_REGION])

@@ -35,7 +35,8 @@ pool receives one host-to-device copy of the tick's coordinates and values
 and returns every result in one copy (``heap.DMPool.exec_fused_tick``);
 every READ sweep, fused or not, is one ``fleet_read`` launch, the leaf reads
 of every in-flight scan included; a wave's SCAN/RANGE starts are located by
-one ``leaf_probe`` launch (``locate_wave``).  Not in this slice: the obs
+one ``leaf_probe`` launch (``locate_wave``, over the union of the wave's
+fence caches, sorted once per wave).  Not in this slice: the obs
 hub's per-tick sampling (A11) and the tracer fallback (A12).
 """
 from __future__ import annotations
@@ -455,14 +456,14 @@ class FleetEngine:
             starts.extend(row_starts)
         if not starts or not fences:
             return {row: [-1] * n for (row, _s, n) in spans}
-        by_low = sorted((low, lid) for lid, low in fences.items())
-        lows = ordered._lows_tensor([low for (low, _lid) in by_low],
-                                    self.sched.pool.device)
-        idx = ordered._leaf_probe(starts, lows)
+        lids = np.fromiter(fences.keys(), np.int64, count=len(fences))
+        lows = np.fromiter(fences.values(), np.uint64, count=len(fences))
+        order = np.lexsort((lids, lows))      # sorted((low, lid)) order
+        pool = self.sched.pool
+        hints = ordered.probe_hints(
+            pool, starts, ordered.lows_tensor(pool, lows[order]), lids[order])
         self._handles["scan_locate_invocations"].value += 1
         self._handles["scan_locate_keys"].value += len(starts)
-        hints = [by_low[int(i)][1] if i >= 0 else by_low[0][1]
-                 for i in idx]
         return {row: hints[s:s + n] for (row, s, n) in spans}
 
     def submit_wave(self, wave: Sequence[Tuple[SimBackend, Sequence[Op]]]

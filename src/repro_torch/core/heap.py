@@ -21,7 +21,10 @@ Device contract
 * ``exec_fused_tick`` moves a tick's coordinates and values to the device
   in one copy, runs the READ sweep through the ``fleet_read`` kernel and
   the WRITE/CAS/FAA sweeps as tensor scatters, and brings every result back
-  in one copy.  Same-word CAS/FAA races (rare) cost one extra round trip.
+  in one copy: the kernel and the CAS/FAA gathers write one reused device
+  staging buffer, whose used prefix comes back through a pinned mirror
+  with one non-blocking copy and one sync, into a fresh host array per
+  tick.  Same-word CAS/FAA races (rare) cost one extra round trip.
 * ``DMConfig(ordered_index=True)`` adds the ordered keydir's region
   (core/ordered.py) after the index shards, placed and migrated like them.
 """
@@ -36,7 +39,8 @@ import torch
 
 from . import layout as L
 from .ring import PlacementDirectory, ring_replicas
-from ..kernels.fleet_tick import fleet_read
+from .staging import Staging
+from ..kernels.fleet_tick.ops import fleet_read_tick
 
 _M64 = 0xFFFF_FFFF_FFFF_FFFF
 
@@ -104,6 +108,14 @@ def _putter(host: List[np.ndarray]):
         host.append(np.ascontiguousarray(arr, np.int64))
         return slice(start, start + len(arr))
     return put
+
+
+def _words(plan, reads: bool = False) -> int:
+    """Result words a planned sweep stages: the READ sweep's gathered
+    words, or one old value per vectorized CAS/FAA verb."""
+    if plan is None or plan[1] is None:
+        return 0
+    return int(plan[1][1][-1]) if reads else len(plan[1][0])
 
 
 def _split_dups(addr: np.ndarray, li: np.ndarray):
@@ -301,6 +313,10 @@ class DMPool:
         # until the topology token changes (see _fused_cells)
         self._fused_lut = None
         self._alive_gen = 0     # bumped whenever an MN leaves the pool
+        # a tick's results (READ words, then CAS and FAA old values) are
+        # staged in one device buffer and come back in one copy through its
+        # pinned host mirror
+        self._stage = Staging(self.device)
 
     # ---------------- placement -------------------------------------------
     @property
@@ -587,10 +603,9 @@ class DMPool:
         verb, or None where the target replica is dead (or ``n`` is 0)."""
         host: List[np.ndarray] = []
         plan = self._plan_reads(_putter(host), regions, replicas, offs, ns)
-        outs: List[torch.Tensor] = []
-        self._sweep_reads(plan, self._h2d(host), outs)
-        res = to_u64(outs[0]) if outs else np.zeros(0, np.uint64)
-        return self._unpack_reads(plan, res, 0)[0]
+        n = _words(plan, reads=True)
+        self._sweep_reads(plan, self._h2d(host), self._results(n))
+        return self._unpack_reads(plan, self._fetch(n), 0)[0]
 
     def write_batch(self, regions, replicas, offs, words_list) -> list:
         """Vectorized WRITE of per-verb word lists.  Overlapping writes
@@ -774,22 +789,36 @@ class DMPool:
                                        (faas[3],))
         dbuf = self._h2d(host)
 
-        # ---- device sweeps, in verb order ----------------------------------
-        outs: List[torch.Tensor] = []    # pieces of the one D2H copy
-        self._sweep_reads(r_plan, dbuf, outs)
+        # ---- device sweeps, in verb order, into the staging buffer --------
+        n_r = _words(r_plan, reads=True)
+        n_c = _words(c_plan)
+        used = n_r + n_c + _words(f_plan)
+        stage = self._results(used)
+        self._sweep_reads(r_plan, dbuf, stage)
         if w_plan is not None:
             s_addr, s_vals = w_plan
             flat[dbuf[s_addr]] = dbuf[s_vals]
-        c_res = self._sweep_atomic(c_plan, dbuf, outs, cas=True)
-        f_res = self._sweep_atomic(f_plan, dbuf, outs, cas=False)
-        res = (to_u64(torch.cat(outs)) if outs
-               else np.zeros(0, np.uint64))
+        c_res = self._sweep_atomic(c_plan, dbuf, stage, n_r, cas=True)
+        f_res = self._sweep_atomic(f_plan, dbuf, stage, n_r + n_c, cas=False)
+        res = self._fetch(used)
 
         # ---- split the results on the host ---------------------------------
         r_out, pos = self._unpack_reads(r_plan, res, 0)
         c_out, pos = self._unpack_atomic(c_plan, c_res, res, pos)
         f_out, pos = self._unpack_atomic(f_plan, f_res, res, pos)
         return r_out, w_out, c_out, f_out
+
+    def _results(self, n: int) -> torch.Tensor:
+        """The device staging buffer of a sweep's results (>= n words)."""
+        return self._stage.buffer(n)
+
+    def _fetch(self, n: int) -> np.ndarray:
+        """The first ``n`` staged words as the protocol's unsigned words, in
+        a fresh host array (the rows handed out outlive the next tick,
+        which overwrites the mirror)."""
+        if n == 0:
+            return np.zeros(0, np.uint64)
+        return self._stage.download(n).view(np.uint64)
 
     def _h2d(self, host: List[np.ndarray]) -> torch.Tensor:
         """The one host-to-device copy of a sweep's int64 pieces."""
@@ -813,13 +842,16 @@ class DMPool:
         base = cells[sel] * self.slab.region_words + offs[sel]
         return (len(regions), (sel, start, put(base), put(start)))
 
-    def _sweep_reads(self, plan, dbuf, outs):
-        """Device part of a READ sweep: one ragged ``fleet_read`` launch."""
+    def _sweep_reads(self, plan, dbuf, stage):
+        """Device part of a READ sweep: one ragged ``fleet_read`` launch
+        that writes the words at the head of ``stage``.  The plan's
+        coordinates are int64 slices of ``dbuf``, contiguous and on the
+        slab's device by construction, so the launch checks nothing."""
         if plan is None or plan[1] is None:
             return
         _sel, start, s_base, s_start = plan[1]
-        outs.append(fleet_read(self.slab.buf, dbuf[s_base], dbuf[s_start],
-                               int(start[-1])))
+        fleet_read_tick(self.slab.buf, dbuf, s_base, s_start, int(start[-1]),
+                        stage, 0, self.device)
 
     @staticmethod
     def _unpack_reads(plan, res, pos):
@@ -904,25 +936,26 @@ class DMPool:
         slices = [put(addr[vsel])] + [put(b[vsel]) for b in bits]
         return (len(regions), (vsel, dsel, addr, bits, slices))
 
-    def _sweep_atomic(self, plan, dbuf, outs, *, cas: bool):
+    def _sweep_atomic(self, plan, dbuf, stage, off, *, cas: bool):
         """Device part of the CAS (``cas``) or FAA sweep: one vectorized
-        pass over words touched once; words several verbs touch are
-        serialized in input order on the host (one extra round trip, only
-        in ticks that have such races).  Returns the host-resolved old
-        values of the serialized verbs."""
+        pass over words touched once, their old values gathered into
+        ``stage`` at ``off``; words several verbs touch are serialized in
+        input order on the host (one extra round trip, only in ticks that
+        have such races).  Returns the host-resolved old values of the
+        serialized verbs."""
         if plan is None or plan[1] is None:
             return {}
         vsel, dsel, addr, bits, slices = plan[1]
         flat = self.slab.buf
         if len(vsel):
             a = dbuf[slices[0]]
-            old = flat[a]
+            old = torch.index_select(flat, 0, a,
+                                     out=stage[off:off + len(vsel)])
             if cas:
                 flat[a] = torch.where(old == dbuf[slices[1]],
                                       dbuf[slices[2]], old)
             else:
                 flat[a] = old + dbuf[slices[1]]     # 64-bit wrap-around
-            outs.append(old)
         if not len(dsel):
             return {}
         words, inv = np.unique(addr[dsel], return_inverse=True)

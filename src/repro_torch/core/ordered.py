@@ -67,7 +67,10 @@ is the same host Python, verb for verb.  Two things differ, neither in
 what is computed:
 
 * every locate goes through the ``leaf_probe`` kernel on the pool's device
-  (``kernels/leaf_probe``; the plain torch version on a CPU pool);
+  (``kernels/leaf_probe``; the plain torch version on a CPU pool), one
+  launch per ``locate_leaves`` call, against the device copy of the
+  client's sorted fence lows that its ``FenceCache`` (core/fences.py)
+  keeps and re-uploads only when the fences change;
 * the master-side helpers (``repair_ordered``, ``ensure_entry_direct``,
   ``ordered_keys_direct``) run the reference's word-level code on one host
   copy of each alive replica and write back only the words that changed.
@@ -83,6 +86,8 @@ from . import layout as L
 from . import race
 from .events import FULL, NOT_FOUND, OK, MasterCall, OpResult, Phase, Verb
 from .heap import as_i64_bits, set_word, to_u64
+from .staging import Staging
+from ..kernels import build
 from ..kernels.leaf_probe import leaf_probe
 
 __all__ = ["LEAF_WORDS", "LEAF_ENTRIES", "leaf_probe_np", "init_region",
@@ -188,31 +193,73 @@ def leaf_probe_np(starts: np.ndarray, lows: np.ndarray):
     return np.searchsorted(lows, starts, side="right").astype(np.int32) - 1
 
 
-def _lows_tensor(lows, device) -> torch.Tensor:
-    """Sorted uint64 lows as the int64 bit patterns the kernel takes."""
-    arr = np.asarray(lows, np.uint64)
-    return torch.from_numpy(arr.view(np.int64)).to(device)
+class _ProbeStage:
+    """The buffers of a device's ``leaf_probe`` launches: the starts are
+    written into pinned host memory, which the launch reads in place (a
+    locate's one start is passed to the kernel by value; pinned memory is
+    mapped into the card's address space), and the kernel writes its int32
+    answers into pinned host memory in place too, so a locate is one launch
+    and one sync of the stream it ran on, with no copy either way.  A
+    locate wave's unioned lows go up with one non-blocking copy.  Every
+    probe ends in that sync, so the next may reuse the buffers.  On a CPU
+    device the same buffers are plain host tensors."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.starts = Staging(device, torch.int64)
+        self.out = Staging(device, torch.int32)
+        self.lows = Staging(device, torch.int64)
+
+    def probe(self, starts: np.ndarray, lows: torch.Tensor) -> np.ndarray:
+        n = starts.size
+        st, st_np = self.starts.host(n)
+        out, out_np = self.out.host(n)
+        st_np[:] = starts.view(np.int64)
+        leaf_probe(st, lows, out=out)
+        if self.device.type == "cuda":
+            build.current_stream(self.device).synchronize()
+        return out_np.copy()
 
 
-def _leaf_probe(starts, lows: torch.Tensor) -> np.ndarray:
-    """One ``leaf_probe`` call for ``starts`` (uint64 values) against the
-    sorted ``lows`` on their device; the result as host int32."""
-    st = torch.from_numpy(np.asarray(starts, np.uint64).view(np.int64))
-    return leaf_probe(st.to(lows.device), lows).cpu().numpy()
+_stages: Dict[torch.device, _ProbeStage] = {}
+
+
+def _stage(device: torch.device) -> _ProbeStage:
+    """The locate buffers of ``device``, made on its first locate."""
+    stage = _stages.get(device)
+    if stage is None:
+        stage = _stages[device] = _ProbeStage(device)
+    return stage
+
+
+def lows_tensor(pool, lows: np.ndarray) -> torch.Tensor:
+    """Sorted uint64 ``lows`` as the int64 bit patterns the kernel takes,
+    on the pool's device (a staging buffer there: valid until the next
+    locate)."""
+    return _stage(pool.device).lows.upload(lows.view(np.int64))
+
+
+def probe_hints(pool, starts: List[int], lows: torch.Tensor,
+                ids: np.ndarray) -> List[int]:
+    """One ``leaf_probe`` launch for ``starts`` (uint64 values) against the
+    sorted ``lows`` on the pool's device, mapped to leaf ids through
+    ``ids`` (the lids in the same order); a start below every low maps to
+    ``ids[0]``, as the reference's ``ids_by_low[0][1]`` does."""
+    idx = _stage(pool.device).probe(np.asarray(starts, np.uint64), lows)
+    return ids[np.maximum(idx, 0)].tolist()
 
 
 def locate_leaves(client, starts: List[int]) -> List[int]:
     """Map start keys to covering-leaf-id hints from the client's fence
-    cache, via one ``leaf_probe`` call on the pool's device.  Returns -1
-    hints when the cache is cold — the scan bootstraps."""
+    cache, via one ``leaf_probe`` launch on the pool's device against the
+    cache's device copy of its sorted lows.  Returns -1 hints when the
+    cache is cold — the scan bootstraps."""
     fences = client.ord_fences
     if not fences:
         return [-1] * len(starts)
-    ids_by_low = sorted((low, lid) for lid, low in fences.items())
-    lows = _lows_tensor([low for low, _lid in ids_by_low], client.pool.device)
-    idx = _leaf_probe(starts, lows)
-    return [ids_by_low[int(i)][1] if i >= 0 else ids_by_low[0][1]
-            for i in idx]
+    _lows, ids = fences.sorted_view()
+    pool = client.pool
+    return probe_hints(pool, starts, fences.device_lows(pool.device), ids)
 
 
 # ------------------------------------------------------ region bootstrap --
@@ -287,7 +334,7 @@ def _bootstrap_fences(client, region: int):
             if raw is not None:
                 leaves[i] = parse_leaf(raw)
     # chain walk from the head: reachable leaves only
-    client.ord_fences = {}
+    client.ord_fences.clear()
     cur, hops = 0, 0
     while cur in leaves and hops <= len(leaves):
         lf = leaves[cur]
@@ -710,9 +757,8 @@ def _predict_chain(client, head: int, n: int) -> List[int]:
     fences = client.ord_fences
     if head not in fences:
         return [head]
-    by_low = sorted((low, lid) for lid, low in fences.items())
-    pos = by_low.index((fences[head], head))
-    return [lid for (_low, lid) in by_low[pos:pos + n]]
+    pos = fences.rank(head)
+    return fences.sorted_view()[1][pos:pos + n].tolist()
 
 
 def _fetch_values(client, keys: List[int]):

@@ -108,6 +108,31 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
-def stream_ptr(device) -> int:
+def _index(device) -> int:
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def stream_ptr(device) -> int:
+    """The raw handle of PyTorch's current CUDA stream on ``device`` (the
+    stream every kernel of the port launches on), read through
+    ``torch._C``'s raw getter, which builds no Python stream object as
+    ``torch.cuda.current_stream`` does."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(_index(device))
+
+
+_streams: Dict[tuple, object] = {}
+
+
+def current_stream(device):
+    """``torch.cuda.current_stream(device)``, cached by device and raw
+    handle, so that synchronising the stream a kernel just launched on
+    builds no Python stream object per call."""
+    key = (_index(device), stream_ptr(device))
+    stream = _streams.get(key)
+    if stream is None:
+        import torch
+        stream = _streams[key] = torch.cuda.current_stream(device)
+    return stream

@@ -11,6 +11,11 @@ the path: CPU tensors take ``fleet_read_plain``; CUDA tensors launch
 ``csrc/fleet_read.cu`` (replacing the JAX package's
 ``kernels/fleet_tick/kernel.py::fleet_read_fwd``) or raise.  Every kernel
 launch adds one to ``fleet_read.launches``.
+
+``fleet_read_tick`` is the pool's own entry to the same kernel: ``base``
+and ``start`` are slices of the tick's upload buffer, the words land at an
+offset of the pool's staging buffer, and it checks nothing (the pool builds
+those buffers contiguous, int64 and on the slab's device).
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 
 from .. import build
 
-__all__ = ["fleet_read", "fleet_read_plain"]
+__all__ = ["fleet_read", "fleet_read_plain", "fleet_read_tick"]
 
 
 def fleet_read_plain(slab: torch.Tensor, base: torch.Tensor,
@@ -52,14 +57,16 @@ def _check_inputs(slab, base, start, total):
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C entry point of ``csrc/fleet_read.cu``, built and typed on
-    first use."""
-    fn = build.load("fleet_read").fleet_read_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _launchers():
+    """The C entry points of ``csrc/fleet_read.cu``, built and typed on
+    first use: (fleet_read_launch, fleet_read_tick)."""
+    lib = build.load("fleet_read")
+    P, LL = ctypes.c_void_p, ctypes.c_longlong
+    launch, tick = lib.fleet_read_launch, lib.fleet_read_tick
+    launch.argtypes = [P, P, P, LL, LL, P, P]
+    tick.argtypes = [P, P, LL, LL, LL, LL, P, LL, P]
+    launch.restype = tick.restype = ctypes.c_int
+    return launch, tick
 
 
 def fleet_read(slab: torch.Tensor, base: torch.Tensor, start: torch.Tensor,
@@ -75,14 +82,32 @@ def fleet_read(slab: torch.Tensor, base: torch.Tensor, start: torch.Tensor,
     base = base.contiguous()
     start = start.contiguous()
     out = torch.empty(total, dtype=torch.int64, device=slab.device)
-    if base.numel() == 0:
+    if total == 0:
         return out                              # nothing to launch
-    err = _launcher()(slab.data_ptr(), base.data_ptr(), start.data_ptr(),
-                      base.numel(), out.data_ptr(),
-                      build.stream_ptr(slab.device))
+    err = _launchers()[0](slab.data_ptr(), base.data_ptr(), start.data_ptr(),
+                          base.numel(), total, out.data_ptr(),
+                          build.stream_ptr(slab.device))
     build.check(err, "fleet_read")
     fleet_read.launches += 1
     return out
+
+
+def fleet_read_tick(slab: torch.Tensor, buf: torch.Tensor, base: slice,
+                    start: slice, total: int, out: torch.Tensor,
+                    out_off: int, device: torch.device) -> None:
+    """The fused tick's READ sweep: ``buf[base]`` and ``buf[start]`` are
+    the sweep's coordinates, and its ``total`` (> 0) words land in
+    ``out[out_off : out_off + total]``; ``device`` is the pool's (the
+    slab's)."""
+    if device.type == "cpu":
+        out[out_off:out_off + total] = fleet_read_plain(
+            slab, buf[base], buf[start], total)
+        return
+    err = _launchers()[1](slab.data_ptr(), buf.data_ptr(), base.start,
+                          start.start, base.stop - base.start, total,
+                          out.data_ptr(), out_off, build.stream_ptr(device))
+    build.check(err, "fleet_read")
+    fleet_read.launches += 1
 
 
 fleet_read.launches = 0

@@ -145,3 +145,21 @@ def test_paged_wrapper_takes_plain_version_on_cpu():
         paged_attention(q, kc[..., :8], vc[..., :8], 5)  # head_dim differs
     with pytest.raises(TypeError):
         paged_attention(q.double(), kc, vc, 5)
+
+
+@pytest.mark.parametrize("vl", [0, -1])
+def test_paged_wrapper_raises_below_one_valid_len(vl):
+    """A deliberate difference (ROADMAP C): with no position to attend the
+    port's wrapper raises on the CPU path (launching nothing), where the
+    reference's oracle leaves every score at -1e30 and so averages every
+    position's value."""
+    q, kc, vc = _paged_inputs(2, 64, 2, 1, 4, 16, 5)
+    before = paged_attention.launches
+    with pytest.raises(ValueError, match="valid_len"):
+        paged_attention(*(torch.from_numpy(x) for x in (q, kc, vc)), vl)
+    assert paged_attention.launches == before
+    ref = paged_attention_ref(jnp.asarray(q), jnp.asarray(kc),
+                              jnp.asarray(vc), vl)
+    mean = vc.reshape(-1, 2, 1, 16).mean(axis=0)          # (B, KV, hd)
+    np.testing.assert_allclose(np.asarray(ref),
+                               np.repeat(mean, 4, axis=1), atol=2e-5)

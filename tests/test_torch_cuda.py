@@ -1,7 +1,10 @@
-"""The port on the card: each CUDA kernel against its plain torch version,
-and a seeded fleet run, fault run, YCSB-E run (with a client crashed inside
-a leaf split) and serving run on ``cuda`` against the same runs on ``cpu``.  Every test is marked ``cuda`` and skips without a
-GPU.
+"""The port on the card: each CUDA kernel against its plain torch version
+(``fleet_read`` through its public wrapper and the pool's entry,
+``leaf_probe`` on device and pinned host memory), the staging buffers, a
+fleet tick's rows kept across the next tick, and a seeded fleet run,
+fault run, YCSB-E run (with a client crashed inside a leaf split) and
+serving run on ``cuda`` against the same runs on ``cpu``.  Every test is
+marked ``cuda`` and skips without a GPU.
 
 This file imports neither ``jax`` nor the JAX package, so it also runs on
 a GPU machine that has only PyTorch:
@@ -104,6 +107,164 @@ def test_leaf_probe_kernel_matches_plain(n, m):
                           np.searchsorted(lows, starts, side="right") - 1)
     assert leaf_probe(st[:0], lw).numel() == 0
     assert leaf_probe.launches == before + 1        # nothing to launch
+
+
+FENCE_EDGES = [0, 1, (1 << 63) - 1, 1 << 63, (1 << 64) - 1]
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 4096])
+@pytest.mark.parametrize("m", [0, 1, 31, 32, 33, 1024, 1025, 35_000])
+def test_leaf_probe_search_matches_plain(n, m):
+    """The 32-ary warp search bit for bit against the plain version at
+    every step count: runs of equal lows, lows and starts at 2^63 - 1, 2^63
+    and 2^64 - 1, starts below every low."""
+    require_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7 * n + m)
+    edges = np.array(FENCE_EDGES, np.uint64)
+    lows = np.concatenate([rng.choice(edges, min(m, 5)),
+                           rng.integers(1, 1 << 64, max(m - 5, 0),
+                                        dtype=np.uint64)])
+    if m > 8:
+        lows[m // 4:m // 4 + min(m // 3, 70)] = lows[m // 4]   # equal lows
+    lows = np.sort(lows)
+    starts = np.concatenate([edges, edges - np.uint64(1), lows[::97],
+                             lows[::89] - np.uint64(1),
+                             rng.integers(0, 1 << 64, n, dtype=np.uint64)])
+    starts = rng.permutation(starts)[:n]
+    st = torch.from_numpy(starts.view(np.int64)).to(dev)
+    lw = torch.from_numpy(lows.view(np.int64)).to(dev)
+    out = torch.full((n,), -7, dtype=torch.int32, device=dev)
+    before = leaf_probe.launches
+    got = leaf_probe(st, lw, out=out)
+    want = leaf_probe_plain(st, lw)
+    torch.cuda.synchronize()
+    assert leaf_probe.launches == before + 1 and got is out
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(),
+                          np.searchsorted(lows, starts, side="right") - 1)
+
+
+@pytest.mark.parametrize("n", [1, 33, 4096])
+def test_leaf_probe_reads_and_writes_pinned_host_memory(n):
+    """Beside device lows, pinned host starts and out are read and written
+    in place by the kernel (the locate path's staging); unpinned host
+    memory is refused."""
+    require_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n)
+    lows = np.sort(rng.integers(0, 1 << 64, 3312, dtype=np.uint64))
+    lows[100:140] = lows[100]
+    lw = torch.from_numpy(lows.view(np.int64)).to(dev)
+    starts = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    st = torch.from_numpy(starts.view(np.int64)).pin_memory()
+    out = torch.full((n,), -7, dtype=torch.int32).pin_memory()
+    before = leaf_probe.launches
+    assert leaf_probe(st, lw, out=out) is out
+    torch.cuda.synchronize()
+    assert leaf_probe.launches == before + 1
+    assert torch.equal(out, leaf_probe_plain(st.to(dev), lw).cpu())
+    assert np.array_equal(out.numpy(),
+                          np.searchsorted(lows, starts, side="right") - 1)
+    with pytest.raises(ValueError):
+        leaf_probe(st.clone(), lw)                  # pageable host memory
+
+
+def test_fleet_read_tick_writes_at_an_offset():
+    """The pool's entry reads base and start at offsets of one upload
+    buffer and writes 0-, 1- and 128-word verbs (and a run of 2 000
+    zero-length verbs) at an offset of a larger staging
+    buffer, leaving every other word of it untouched; the public wrapper
+    gives the plain version's words."""
+    require_cuda()
+    from repro_torch.kernels.fleet_tick import ops as fr_ops
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    words = rng.integers(0, 1 << 64, 1 << 14, dtype=np.uint64)
+    slab = torch.from_numpy(words.view(np.int64)).to(dev)
+    lens = np.array([0, 1, 128, 0, 1, 128] * 40 + [0] * 2000 + [128, 1, 0]
+                    + list(rng.integers(0, 130, 300)), np.int64)
+    base = rng.integers(0, slab.numel() - 130, lens.size)
+    start = np.concatenate([[0], np.cumsum(lens)])
+    total = int(start[-1])
+    junk = rng.integers(-9, 9, 11)
+    buf = torch.from_numpy(np.concatenate([junk, base, junk, start])).to(dev)
+    b0, s0 = junk.size, 2 * junk.size + base.size
+    stage = torch.full((total + 300,), -5, dtype=torch.int64, device=dev)
+    before = fleet_read.launches
+    fr_ops.fleet_read_tick(slab, buf, slice(b0, b0 + base.size),
+                           slice(s0, s0 + start.size), total, stage, 137,
+                           dev)
+    b_t, s_t = (torch.from_numpy(x).to(dev) for x in (base, start))
+    want = fleet_read_plain(slab, b_t, s_t, total)
+    public = fleet_read(slab, b_t, s_t, total)
+    torch.cuda.synchronize()
+    assert fleet_read.launches == before + 2
+    assert torch.equal(stage[137:137 + total], want)
+    assert bool((stage[:137] == -5).all()) and \
+        bool((stage[137 + total:] == -5).all())
+    assert torch.equal(public, want)
+    host = np.concatenate([words[b:b + k] for b, k in zip(base, lens)])
+    assert np.array_equal(want.cpu().numpy().view(np.uint64), host)
+
+
+def test_staging_uploads_and_downloads_on_cuda():
+    """``Staging`` on the card: uploads land on the device (the second one
+    waits for the first to leave the pinned mirror), the buffers grow, and
+    a download is a fresh host array that a later upload or kernel write
+    does not change."""
+    require_cuda()
+    from repro_torch.core.staging import Staging
+    stage = Staging(torch.device("cuda"))
+    a = np.arange(100, dtype=np.int64) - 50
+    d = stage.upload(a)
+    assert d.is_cuda and d.numel() == 100
+    assert np.array_equal(d.cpu().numpy(), a)
+    b = np.arange(5000, dtype=np.int64) * 3
+    d = stage.upload(b)
+    assert np.array_equal(d.cpu().numpy(), b)
+    got = stage.download(5000)
+    stage.buffer(5000)[:10] = -1
+    stage.upload(a)
+    torch.cuda.synchronize()
+    assert np.array_equal(got, b)
+    h, h_np = stage.host(7)
+    assert h.is_pinned() and h.numel() == 7 and h_np.size == 7
+
+
+def _kept_rows_run(device):
+    """Two fused ticks on one pool; the first tick's rows are kept across
+    the second, which reads the same words after they were rewritten."""
+    pool = T.DMPool(T.DMConfig(num_mns=4, replication=2,
+                               region_words=1 << 12), device=device)
+    rng = np.random.default_rng(9)
+    for g in sorted(pool.placement):
+        pool.write(g, 0, 0, [g * 1000 + i for i in range(64)])
+    regions = [int(rng.choice(sorted(pool.placement))) for _ in range(24)]
+    reads = (regions, [0] * 24, [int(o) for o in rng.integers(0, 48, 24)],
+             [int(k) for k in rng.integers(1, 16, 24)])
+    kept = pool.exec_fused_tick(reads)[0]
+    first = [r.copy() for r in kept]
+    for g in sorted(pool.placement):
+        pool.write(g, 0, 0, [(1 << 63) + i for i in range(64)])
+    second = pool.exec_fused_tick(
+        reads, None, (regions, [0] * 24, [1] * 24, [0] * 24, [7] * 24),
+        (regions, [0] * 24, [0] * 24, [1] * 24))
+    assert all(np.array_equal(a, b) for a, b in zip(kept, first))
+    return [r.tolist() for r in kept], [
+        [None if x is None else np.asarray(x).tolist() for x in res]
+        for res in second]
+
+
+def test_fleet_tick_rows_outlive_the_next_tick_on_cuda():
+    """A fleet tick's rows on the card are fresh host arrays: kept across
+    the next tick (which reuses the pool's staging buffer and its pinned
+    mirror) they do not change, and both ticks equal the CPU pool's."""
+    require_cuda()
+    before = fleet_read.launches
+    gpu = _kept_rows_run("cuda")
+    assert fleet_read.launches == before + 2
+    assert gpu == _kept_rows_run("cpu")
 
 
 def test_ycsbe_crash_run_on_cuda_matches_cpu():

@@ -28,11 +28,12 @@ def _cfg(M, ref_cfg):
 
 def _watch_read_batches(monkeypatch) -> list:
     """Per port ``DMPool.read_batch`` call with a live verb, the number of
-    ``fleet_read`` calls it made (the migration windows' READ path)."""
+    ``fleet_read`` calls it made through the pool's entry,
+    ``fleet_read_tick`` (the migration windows' READ path)."""
     from repro_torch.core import heap
     n_fr = [0]
     per_batch: list = []
-    orig_fr, orig_rb = heap.fleet_read, heap.DMPool.read_batch
+    orig_fr, orig_rb = heap.fleet_read_tick, heap.DMPool.read_batch
 
     def fleet_read(*a):
         n_fr[0] += 1
@@ -45,7 +46,7 @@ def _watch_read_batches(monkeypatch) -> list:
             per_batch.append(n_fr[0] - before)
         return out
 
-    monkeypatch.setattr(heap, "fleet_read", fleet_read)
+    monkeypatch.setattr(heap, "fleet_read_tick", fleet_read)
     monkeypatch.setattr(heap.DMPool, "read_batch", read_batch)
     return per_batch
 

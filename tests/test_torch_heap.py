@@ -140,6 +140,55 @@ def test_fused_tick_races_and_overlaps(seed):
     _assert_same_pools(ref, port)
 
 
+def test_fused_tick_rows_outlive_the_next_tick():
+    """The rows a tick hands out stay the caller's: the protocol keeps them
+    across ticks, and the next tick, which reuses the pool's staging
+    buffers, must not change them.  Both ticks equal the reference's."""
+    rng = np.random.default_rng(5)
+    ref, port = _pair(seed=5, num_mns=4, region_words=1 << 12)
+    for p in (ref, port):
+        for g in sorted(p.placement):
+            p.write(g, 0, 0, [g * 1000 + i for i in range(64)])
+    regions, reps = _coords(ref, 16, rng)
+    reads = (regions, reps, [int(o) for o in rng.integers(0, 48, 16)],
+             [int(m) for m in rng.integers(1, 16, 16)])
+    kept = port.exec_fused_tick(reads)[0]
+    want = norm_list(kept)
+    assert want == norm_list(ref.exec_fused_tick(reads)[0])
+    faas = (regions, [0] * 16, [0] * 16, [1] * 16)
+    cass = (regions, [0] * 16, [1] * 16, [0] * 16, [7] * 16)
+    for p in (ref, port):
+        for g in sorted(p.placement):
+            p.write(g, 0, 0, [(1 << 63) + i for i in range(64)])
+    _replay(ref, port, (reads, None, cass, faas))
+    assert norm_list(kept) == want
+    _assert_same_pools(ref, port)
+
+
+def test_staging_round_trip_and_growth():
+    """``Staging`` on the CPU (one tensor for buffer and mirror): uploads
+    and downloads round-trip through geometric growth, and a download is a
+    fresh array that the next upload or a write into the buffer does not
+    change."""
+    from repro_torch.core.staging import Staging
+    stage = Staging(torch.device("cpu"))
+    rng = np.random.default_rng(2)
+    kept = []
+    for n in (0, 1, 64, 65, 1000, 3, 5000):
+        a = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+        d = stage.upload(a)
+        assert d.numel() == n and np.array_equal(d.numpy(), a)
+        assert stage.buffer(n).numel() >= n
+        got = stage.download(n)
+        assert np.array_equal(got, a)
+        kept.append((a, got))
+        stage.buffer(n)[:n] = 0
+    assert all(np.array_equal(a, got) for a, got in kept)
+    h, h_np = stage.host(9)
+    h_np[:] = 7
+    assert h.numel() == 9 and bool((h == 7).all())
+
+
 # ------------------------------------------------------------- plain verbs
 def test_scalar_verbs_match_reference():
     ref, port = _pair(num_mns=3)
@@ -193,12 +242,13 @@ def test_batch_verbs_match_reference(seed):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_read_batch_is_one_ragged_fleet_read(seed, monkeypatch):
     """``read_batch`` over several regions, ragged and zero lengths and a
-    dead MN matches the reference and is one ``fleet_read`` call."""
+    dead MN matches the reference and is one ``fleet_read`` call (through
+    the pool's entry, ``fleet_read_tick``)."""
     import repro_torch.core.heap as heap
     calls = []
-    orig = heap.fleet_read
-    monkeypatch.setattr(heap, "fleet_read",
-                        lambda *a: calls.append(a[3]) or orig(*a))
+    orig = heap.fleet_read_tick
+    monkeypatch.setattr(heap, "fleet_read_tick",
+                        lambda *a: calls.append(a[4]) or orig(*a))
     rng = np.random.default_rng(seed)
     ref, port = _pair(seed=seed, num_mns=4, region_words=1 << 12)
     rw = [int(v) for v in rng.integers(0, 1 << 64, 64, dtype=np.uint64)]

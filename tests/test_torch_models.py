@@ -221,3 +221,23 @@ def test_block_hashes_bit_identical():
     for n in (0, 63, 64, 200, 1152):
         p = rng.integers(0, 128256, n).astype(np.int32)
         assert np.array_equal(port_block_hashes(p), ref_block_hashes(p))
+
+
+def _max_len_run(Eng, Req, Pool, model, params):
+    eng = Eng(model, params, max_batch=1, max_len=64,
+              pool_cfg=Pool(n_pages=64, n_buckets=32, slots_per_bucket=4))
+    eng.submit(Req(rid=0, prompt=_prompt(B=1, S=64)[0], max_new=4))
+    return eng, eng.run(max_ticks=10)
+
+
+def test_prompt_of_exactly_max_len(f32_pair):
+    """A deliberate difference (ROADMAP C): a prompt that fills ``max_len``.
+    The reference's prefill writes the first new token past the slot's
+    last position and raises ``IndexError``; the port's engine guards the
+    write, returns exactly that one token and retires the request."""
+    m, params, port, tp = f32_pair
+    with pytest.raises(IndexError):
+        _max_len_run(RefEngine, RefRequest, RefPoolCfg, m, params)
+    eng, done = _max_len_run(ServeEngine, Request, PoolConfig, port, tp)
+    assert [(q.rid, len(q.out)) for q in done] == [(0, 1)]
+    assert not eng.active and not eng.queue and eng.steps == 1

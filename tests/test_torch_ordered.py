@@ -6,7 +6,9 @@ CPU.
   sets of ``tests/test_kernels.py`` plus the 32- and 64-bit boundaries,
   duplicate lows and no lows at all (tolerance 0).
 * The keydir's codec and the fence cache: leaves, meta words, locate
-  hints and chain predictions equal the reference's.
+  hints, locate waves and chain predictions equal the reference's; the
+  port's ``FenceCache`` keeps its sorted view and version right through
+  seeded sequences of every dict mutator.
 * The non-slow cases of ``tests/test_ordered.py``, each run on both
   packages: the results and the run's ``signature()`` (pool bytes,
   ``health()``, op history, per-MN bytes, fleet counters) must be equal.
@@ -29,6 +31,7 @@ from repro.core import ordered as RO
 from repro.kernels.leaf_probe.kernel import leaf_probe_fwd
 from repro.kernels.leaf_probe.ref import leaf_probe_ref
 from repro_torch.core import ordered as TO
+from repro_torch.core.fences import FenceCache
 from repro_torch.kernels import leaf_probe, leaf_probe_plain, reset_launches
 
 from _torch_parity import assert_same_run, signature
@@ -211,6 +214,169 @@ def test_leaf_probe_hint_roundtrip():
             assert client.ord_fences[leaf] <= start
         return hints, cl
     _both(run)
+
+
+# ------------------------------------------------------------ fence cache
+def _check_sorted_view(fc):
+    lows, ids = fc.sorted_view()
+    assert lows.dtype == np.uint64 and ids.dtype == np.int64
+    assert list(zip(map(int, lows), map(int, ids))) == \
+        sorted((low, lid) for lid, low in fc.items())
+    assert torch.equal(fc.device_lows(torch.device("cpu")),
+                       _t64(lows))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fence_cache_sorted_view_and_version(seed):
+    """Seeded sequences of set, same-value set, overwrite, delete,
+    ``update``, ``setdefault``, ``pop``, ``popitem``, ``|=``, ``clear``
+    and re-bootstrap (a clear, then a chain walk of sets with no read in
+    between): the cache equals a plain dict driven alike, its version moves
+    exactly when its contents change, and after each step (after each
+    chain walk) its sorted view is ``sorted((low, lid))``."""
+    rng = np.random.default_rng(seed)
+    lows = [0, 1, (1 << 63) - 1, 1 << 63, M64] + \
+        rng.integers(0, 1 << 64, 12, dtype=np.uint64).tolist()
+    fc, shadow = FenceCache(), {}
+
+    def low():
+        return lows[int(rng.integers(len(lows)))]
+
+    def step(fn):
+        before, v0 = dict(shadow), fc.version
+        assert fn(fc) == fn(shadow)
+        assert fc == shadow
+        assert (fc.version != v0) == (shadow != before)
+
+    for _ in range(300):
+        lid = int(rng.integers(24))
+        op = int(rng.integers(10))
+        if op == 0:
+            v = low()
+            step(lambda d: d.__setitem__(lid, v))
+        elif op == 1 and shadow:
+            same = next(iter(shadow))
+            step(lambda d: d.__setitem__(same, shadow[same]))
+        elif op == 2 and lid in shadow:
+            step(lambda d: d.__delitem__(lid))
+        elif op == 3:
+            upd = {int(rng.integers(24)): low() for _ in range(3)}
+            step(lambda d: d.update(upd))
+        elif op == 4:
+            v = low()
+            step(lambda d: d.setdefault(lid, v))
+        elif op == 5:
+            step(lambda d: d.pop(lid, None))
+        elif op == 6 and shadow:
+            step(lambda d: d.popitem())
+        elif op == 7:
+            upd = {int(rng.integers(24)): low()}
+            step(lambda d: d.__ior__(upd) and None)
+        elif op == 8:
+            step(lambda d: d.clear())
+        elif op == 9:                       # re-bootstrap: clear + chain walk
+            step(lambda d: d.clear())
+            for i in range(int(rng.integers(1, 40))):
+                v = low()
+                step(lambda d: d.__setitem__(i, v))
+        _check_sorted_view(fc)
+
+
+def test_fence_cache_grows_in_place():
+    """Fences added one at a time with a read after each (a rebuild of the
+    sorted view and a new upload of the lows after every change, through
+    several growths of the staging buffers), then removed again."""
+    rng = np.random.default_rng(11)
+    fc, lids = FenceCache(), rng.permutation(300).tolist()
+    for lid in lids:
+        fc[lid] = int(rng.integers(0, 40)) << 58       # many equal lows
+        _check_sorted_view(fc)
+    for lid in lids[::2]:
+        del fc[lid]
+        _check_sorted_view(fc)
+    assert len(fc) == 150
+
+
+def test_client_fence_cache_survives_assignment_and_bootstrap():
+    """Assigning any mapping to ``ord_fences`` gives a ``FenceCache`` with
+    the same contents; a bootstrap refills the same object."""
+    cl = _cluster(T, num_clients=1)
+    client = cl.clients[0]
+    client.ord_fences = {3: 30, 1: 10}
+    assert isinstance(client.ord_fences, FenceCache)
+    assert client.ord_fences == {3: 30, 1: 10}
+    kv = cl.store(0)
+    for k in range(80):
+        kv.insert(k, [k])
+    cache = client.ord_fences
+    client.ord_fences.clear()
+    assert [k for k, _v in kv.scan(0, 80)] == list(range(80))
+    assert client.ord_fences is cache and len(cache) > 1
+    _check_sorted_view(cache)
+
+
+@pytest.mark.parametrize("case", ["empty", "duplicates", "high", "below"])
+def test_locate_and_predict_chain_edges_match_reference(case):
+    """``locate_leaves`` and ``_predict_chain`` on the same fences equal the
+    reference's: duplicate lows inserted out of lid order, lows >= 2^63,
+    starts below every low, an empty cache; then after a few changes."""
+    fences = {
+        "empty": {},
+        "duplicates": {5: 10, 2: 10, 9: 10, 0: 0, 7: 40, 3: 40, 8: 25},
+        "high": {0: 0, 4: 1 << 63, 2: M64 - 1, 6: (1 << 63) - 1, 1: M64},
+        "below": {3: 100, 1: 200, 2: 200, 9: 1 << 63},
+    }[case]
+    ref_c = R.FuseeCluster(R.DMConfig(**CFG), num_clients=1).clients[0]
+    port_c = _cluster(T, num_clients=1).clients[0]
+    starts = [0, 5, 9, 10, 11, 25, 40, 99, 100, 200, 201, (1 << 63) - 1,
+              1 << 63, M64 - 1, M64]
+    for change in (None, (9, 40), (5, None), (11, 0), (2, M64)):
+        if change is not None:
+            lid, low = change
+            for c in (ref_c, port_c):
+                if low is None:
+                    c.ord_fences.pop(lid, None)
+                else:
+                    c.ord_fences[lid] = low
+        else:
+            ref_c.ord_fences = dict(fences)
+            port_c.ord_fences = dict(fences)
+        assert port_c.ord_fences == ref_c.ord_fences
+        assert TO.locate_leaves(port_c, starts) == \
+            RO.locate_leaves(ref_c, starts)
+        for head in list(ref_c.ord_fences) + [77]:
+            for n in (1, 3, 50):
+                assert TO._predict_chain(port_c, head, n) == \
+                    RO._predict_chain(ref_c, head, n)
+
+
+def test_locate_wave_union_matches_reference():
+    """A wave whose clients disagree on a lid's low (a later row's low wins
+    in the union) and know different lids, one row knowing none: the same
+    hints as the reference's ``locate_wave``, in one probe."""
+    fences = [{0: 0, 1: 100, 2: 200}, {},
+              {0: 0, 1: 150, 3: 1 << 63, 2: 200},
+              {2: 50, 4: M64 - 1, 5: 200}]
+    keys = [[0, 99, 100, 149], [7], [150, 199, 200, (1 << 63) + 5],
+            [49, 50, M64]]
+
+    def run(M):
+        cl = _cluster(M, num_clients=4, seed=1)
+        fleet = cl.fleet()
+        backends = [cl.store(c, max_inflight=0).backend for c in range(4)]
+        for c, f in enumerate(fences):
+            cl.clients[c].ord_fences = dict(f)
+        wave = [(backends[c], [M.Op.scan(k, 2) for k in ks])
+                for c, ks in enumerate(keys)]
+        base = fleet.stats()["scan_locate_invocations"]
+        hints = fleet.locate_wave(wave)
+        assert fleet.stats()["scan_locate_invocations"] == base + 1
+        return hints
+
+    got = run(T)
+    assert got == run(R)
+    # lid 1's low is 150 (row 2 over row 0), lid 2's 50 (row 3 over 0, 2)
+    assert got[2] == [1, 1, 5, 3]
 
 
 # ----------------------------------------------------------- basic scans
