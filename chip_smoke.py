@@ -6,21 +6,28 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (printing
-ptxas's registers, shared memory, spills and warnings for the attention,
-``leaf_probe`` and ``fleet_read`` libraries) and then:
+ptxas's registers, shared memory, spills and warnings for every library)
+and then:
 
 1. prints the card's name and power limit as ``nvidia-smi`` reports them;
 2. holds each kernel bit for bit against its plain PyTorch version on edge
    inputs (keys 0, 2^31 and 2^32-1; slab words >= 2^63 and at the 32-bit
-   boundary; zero-length and ragged read verbs; for ``leaf_probe`` starts
-   and fence lows at 0, 2^31, 2^32-1, 2^32, 2^63-1, 2^63 and 2^64-2,
-   duplicate lows, M = 0, 1 and 40 000, N = 1, 1000 and 4097);
+   boundary; zero-length and ragged read verbs; ``race_lookup`` through its
+   public wrapper and the probe path's packed entry at spb 8, 1, 7 and 16;
+   for ``leaf_probe`` starts and fence lows at 0, 2^31, 2^32-1, 2^32,
+   2^63-1, 2^63 and 2^64-2, duplicate lows, M = 0, 1 and 40 000, N = 1,
+   1000 and 4097);
 3. drives the store at the paper's scale (``configs/fusee_paper.py``: 5 MNs,
    replication 2, 100 000 keys, 1 KiB KV pairs, zipf 0.99) with 1024
    clients through ``FleetEngine.submit_wave``: a preload, then YCSB-A, then
    YCSB-C.  The kernels' launch counts are set to 0 just before and read
-   just after; both must be > 0.  Each kernel is then checked and timed on
-   the inputs the run gave it (``fleet_read`` through the pool's own entry,
+   just after; both must be > 0.  The ``[fleet]`` lines give the shadow
+   rebuilds and the host ms per ``probe_wave``, split into shadow, probe
+   and hit resolution.  Each kernel is then checked and timed on the inputs
+   the run gave it (``race_lookup`` through the probe path's packed entry
+   beside its public wrapper, on the device at N = 1, 64, the probe's N and
+   65 536 and at spb 16, beside the launch floor: ``torch.cuda._sleep(0)``,
+   one empty spin kernel; ``fleet_read`` through the pool's own entry,
    ``fleet_read_tick``, beside its public wrapper and ``torch.take``);
 4. audits the drained store: every acknowledged write reads back through GET
    with a value that may legally be last, and every key's index slot is
@@ -356,8 +363,8 @@ def phase_build():
     log(f"[build] {len(libs)} kernel libraries ready in "
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(p.name for p in libs.values()))
-    for name in ("flash_attention", "paged_attention", "leaf_probe",
-                 "fleet_read"):
+    for name in ("race_lookup", "flash_attention", "paged_attention",
+                 "leaf_probe", "fleet_read"):
         for kernel, info in ptxas_report(build.build_log(name)):
             log(f"[build] ptxas {name}: {kernel}: {info}")
 
@@ -375,9 +382,12 @@ def ptxas_report(text: str):
                           r"(\d+)E", m.group(1))
             dtype = ("bf16 " if "bfloat16" in k.group(2) else
                      "f32 " if k.group(2) == "f" else "") if k else ""
-            plain = re.search(r"\d+([a-z][a-z_]*_kernel)E", m.group(1))
+            plain = re.search(r"\d+([a-z][a-z_]*_(?:kernel|thread))"
+                              r"(?:ILi(\d+)E)?E", m.group(1))
             name = (f"{k.group(1)} {dtype}hd {k.group(3)}" if k else
-                    plain.group(1) if plain else m.group(1))
+                    plain.group(1) + (f"<{plain.group(2)}>"
+                                      if plain.group(2) else "")
+                    if plain else m.group(1))
         elif name and ("spill" in line or "Used" in line):
             notes.append(line.split("ptxas info    :")[-1].strip())
             if "Used" in line:
@@ -391,9 +401,11 @@ def ptxas_report(text: str):
 def phase_edge_checks(dev):
     import numpy as np
     import torch
+    from repro_torch.core.api import probe_to_host
     from repro_torch.core.shadow import build_shadow
     from repro_torch.kernels import (fleet_read, fleet_read_plain,
                                      race_lookup, race_lookup_plain)
+    from repro_torch.kernels.race_lookup.ops import race_lookup_packed_plain
     rng = np.random.default_rng(0)
     edge = np.array([0, 1 << 31, (1 << 32) - 1, (1 << 31) - 1, 1], np.int64)
     stored = np.concatenate([edge[:3], rng.integers(0, 1 << 32, 5000)])
@@ -406,12 +418,16 @@ def phase_edge_checks(dev):
     check(torch.equal(p_k, p_p) and torch.equal(f_k, f_p),
           "race_lookup differs from its plain version on edge inputs")
     check(bool(f_k[:3].all()), "race_lookup missed a stored edge key")
-    for spb in (1, 7, 16):                      # other row widths, tiny table
-        t = build_shadow(torch.tensor(stored[:40], device=dev), spb=spb,
-                         min_buckets=2)
+    q_np = q.cpu().numpy()
+    for spb in (8, 1, 7, 16):          # the path's width; then tiny tables
+        t = table if spb == 8 else build_shadow(
+            torch.tensor(stored[:40], device=dev), spb=spb, min_buckets=2)
         a, b = race_lookup(q, t), race_lookup_plain(q, t)
         check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
               f"race_lookup differs at spb={spb}")
+        check(np.array_equal(probe_to_host(q_np, t),
+                             race_lookup_packed_plain(q, t).cpu().numpy()),
+              f"race_lookup's packed entry differs at spb={spb}")
 
     n = 4096
     words = rng.integers(0, 1 << 64, n, dtype=np.uint64)
@@ -437,8 +453,9 @@ def phase_edge_checks(dev):
           "fleet_read differs from the host gather")
     empty = fleet_read(slab, b_t[:0], s_t[:1], 0)
     check(empty.numel() == 0, "fleet_read on zero verbs")
-    log("[kernels] edge checks: race_lookup and fleet_read equal their "
-        "plain versions bit for bit")
+    log("[kernels] edge checks: race_lookup (its public wrapper and the "
+        "probe path's packed entry) and fleet_read equal their plain "
+        "versions bit for bit")
 
 
 LEAF_EDGES = [0, 1 << 31, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63,
@@ -487,27 +504,29 @@ def phase_leaf_probe_edges(dev):
 
 
 class Capture:
-    """Keeps the largest inputs each kernel's wrapper saw during the main
-    path (for the checks and timings at the path's own shapes).  A probe's
-    keys and table are held by reference (the port never writes them after
-    the call); a sweep's coordinates are cloned when they are the largest
-    so far, since the pool reuses its upload and staging buffers.  The
-    wrappers themselves still launch and count."""
+    """Keeps the largest inputs each kernel's entry saw during the main
+    path (for the checks and timings at the path's own shapes).  A
+    probe's keys are copied out of the staging buffer, its table held by
+    reference (the port never writes a shadow table after building it); a
+    sweep's coordinates are cloned when they are the largest so far, since
+    the pool reuses its upload and staging buffers.  The entries
+    themselves still launch and count."""
 
     def __init__(self):
         import repro_torch.core.api as api
         import repro_torch.core.heap as heap
         self.api, self.heap = api, heap
-        self.orig_rl, self.orig_fr = api.race_lookup, heap.fleet_read_tick
+        self.orig_rl, self.orig_fr = (api.race_lookup_probe,
+                                      heap.fleet_read_tick)
         self.rl = None
         self.fr = None
         self.rl_calls = self.fr_calls = 0
 
-        def race_lookup(keys, table):
+        def race_lookup_probe(h_keys, d_keys, table, n, *rest):
             self.rl_calls += 1
-            if self.rl is None or keys.numel() > self.rl[0].numel():
-                self.rl = (keys, table)
-            return self.orig_rl(keys, table)
+            if self.rl is None or n > self.rl[0].size:
+                self.rl = (h_keys[:n].numpy().copy(), table)
+            return self.orig_rl(h_keys, d_keys, table, n, *rest)
 
         def fleet_read_tick(slab, buf, base, start, total, *rest):
             self.fr_calls += 1
@@ -515,10 +534,11 @@ class Capture:
                 self.fr = (buf[base].clone(), buf[start].clone(), total)
             return self.orig_fr(slab, buf, base, start, total, *rest)
 
-        api.race_lookup, heap.fleet_read_tick = race_lookup, fleet_read_tick
+        api.race_lookup_probe = race_lookup_probe
+        heap.fleet_read_tick = fleet_read_tick
 
     def close(self):
-        self.api.race_lookup = self.orig_rl
+        self.api.race_lookup_probe = self.orig_rl
         self.heap.fleet_read_tick = self.orig_fr
 
 
@@ -613,7 +633,14 @@ def phase_fleet(args, device="cuda"):
     st = fleet.stats()
     log(f"[fleet] ticks {st['ticks']}, fused ticks {st['fused_ticks']}, "
         f"probe invocations {st['probe_invocations']}, probe hits "
-        f"{st['probe_hits']}, kernel launches {launches}")
+        f"{st['probe_hits']}, shadow rebuilds {st['shadow_rebuilds']}, "
+        f"kernel launches {launches}")
+    pw = fleet.probe_wave_profile()
+    calls = max(pw["calls"], 1)
+    log(f"[fleet] host ms per probe_wave ({pw['calls']:.0f} calls): "
+        f"{pw['ms_per_call']:.4f}: shadow {1e3 * pw['shadow_s'] / calls:.4f}"
+        f", probe {1e3 * pw['probe_s'] / calls:.4f}, resolve "
+        f"{1e3 * pw['resolve_s'] / calls:.4f}")
     prof = fleet.tick_phase_profile()
     log("[fleet] host time per tick: " + ", ".join(
         f"{k} {prof[k + '_frac']:.3f}" for k in
@@ -630,43 +657,97 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def phase_kernel_timings(cl, capture, launches):
+def probe_keys_like(q_np, n: int, rng):
+    """``n`` keys drawn half from the probe ``q_np`` and half at random."""
+    import numpy as np
+    return np.where(rng.random(n) < 0.5, rng.choice(q_np, n),
+                    rng.integers(0, 1 << 32, n)).astype(np.int64)
+
+
+def race_lookup_row(capture, launches):
+    """race_lookup held bit for bit against its plain version on the main
+    path's largest probe (its own shadow table, plus the edge keys),
+    through the public wrapper and the probe path's packed entry, and
+    timed: on the device at N = 1, 64, the probe's N and 65 536 against
+    the path's table (spb 8) and at the probe's N against a table of spb
+    16; the packed entry per call (keys from a numpy array to a numpy
+    answer) beside the public wrapper; the launch floor."""
+    import numpy as np
     import torch
-    from repro_torch.kernels import (fleet_read, fleet_read_plain,
-                                     race_lookup, race_lookup_plain)
-    from repro_torch.core.shadow import bucket_pair
-    rows = []
-    # race_lookup at the largest probe the main path made
-    q, table = capture.rl
-    edge = torch.tensor([0, 1 << 31, (1 << 32) - 1], device=q.device)
-    qe = torch.cat([q, edge])
+    from repro_torch.core import api
+    from repro_torch.core.shadow import bucket_pair, build_shadow
+    from repro_torch.kernels import race_lookup, race_lookup_plain
+    from repro_torch.kernels.race_lookup.ops import race_lookup_packed_plain
+    q_np, table = capture.rl
+    rng = np.random.default_rng(17)
+    edge = np.array([0, 1 << 31, (1 << 32) - 1], np.int64)
+    qe_np = np.concatenate([q_np, edge])
+    qe = torch.from_numpy(qe_np).cuda()
     a, b = race_lookup(qe, table), race_lookup_plain(qe, table)
+    want = race_lookup_packed_plain(qe, table).cpu().numpy()
+    lean = api.probe_to_host(qe_np, table)
     torch.cuda.synchronize()
     check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
           "race_lookup differs from its plain version on the main path's "
           "inputs")
-    ms = time_ms(lambda: race_lookup(q, table))
-    dev_ms = device_time_ms(lambda: race_lookup(q, table))
+    check(np.array_equal(lean, want), "race_lookup's packed entry differs "
+          "from the plain version on the main path's inputs")
+    q = qe[:q_np.size]
+    sizes = {1: q[:1], 64: q[:64], q_np.size: q,
+             65536: torch.from_numpy(probe_keys_like(q_np, 65536, rng))
+             .cuda()}
+    dev_by_n = {}
+    for nk, keys in sizes.items():
+        check(all(torch.equal(x, y) for x, y in
+                  zip(race_lookup(keys, table),
+                      race_lookup_plain(keys, table))),
+              f"race_lookup differs from its plain version at N={nk}")
+        dev_by_n[nk] = device_time_ms(lambda: race_lookup(keys, table))
+    stored = torch.from_numpy(rng.integers(0, 1 << 32, 100_000)).cuda()
+    t16 = build_shadow(stored, spb=16)
+    k16 = torch.cat([stored[:q_np.size // 2], torch.from_numpy(
+        rng.integers(0, 1 << 32, q_np.size - q_np.size // 2)).cuda()])
+    check(all(torch.equal(x, y) for x, y in
+              zip(race_lookup(k16, t16), race_lookup_plain(k16, t16))),
+          "race_lookup differs from its plain version at spb 16")
+    dev16 = device_time_ms(lambda: race_lookup(k16, t16))
+    floor = device_time_ms(lambda: torch.cuda._sleep(0))
+    n = q_np.size
+    ms = time_ms(lambda: api.probe_to_host(q_np, table))
+    wrapper_ms = time_ms(lambda: race_lookup(q, table))
     plain_ms = time_ms(lambda: race_lookup_plain(q, table))
     spb = table.shape[1]
     b1, b2 = bucket_pair(q, table.shape[0])
     rows_touched = int(torch.unique(torch.cat([b1, b2])).numel())
-    nbytes = q.numel() * 8 + rows_touched * spb * 4 + q.numel() * (4 + 1)
-    rows.append(dict(
+    nbytes = n * 8 + rows_touched * spb * 4 + n * (4 + 1)
+    row = dict(
         name="race_lookup", route="cuda",
         source="src/repro_torch/csrc/race_lookup.cu",
         replaces="src/repro/kernels/race_lookup/kernel.py:68",
         launches=launches["race_lookup"],
         max_abs_err=max_abs_err(a[0], b[0]),
-        ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        ms=ms, device_ms=dev_by_n[n], plain_ms=plain_ms,
         bound_ms=1e3 * nbytes / MEM_BW_BYTES_PER_S, bound_by="bytes",
-        library_ms=None, library_device_ms=None))
-    log(f"[kernels] race_lookup at the main path's largest probe: "
-        f"{q.numel()} keys, table {tuple(table.shape)}, {rows_touched} rows "
-        f"touched; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
-        f"device), plain {plain_ms:.4f} ms, byte bound "
-        f"{rows[-1]['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s)")
+        library_ms=None, library_device_ms=None, wrapper_ms=wrapper_ms,
+        launch_floor_ms=floor,
+        device_ms_by_n={str(k): v for k, v in dev_by_n.items()},
+        device_ms_spb16=dev16)
+    log(f"[kernels] race_lookup at the main path's largest probe: {n} "
+        f"keys, table {tuple(table.shape)}, {rows_touched} rows touched; "
+        f"the packed entry {ms:.5f} ms per call from numpy keys to the numpy "
+        f"answer, the public wrapper {wrapper_ms:.5f} ms, plain {plain_ms:.4f} ms; "
+        f"device ms at spb {spb}: " + ", ".join(
+            f"N={k} {v:.6f}" for k, v in dev_by_n.items())
+        + f"; N={k16.numel()} at spb 16 (table {tuple(t16.shape)}) "
+        f"{dev16:.6f}; launch floor (torch.cuda._sleep(0)) {floor:.6f} ms; "
+        f"byte bound {row['bound_ms']:.7f} ms ({nbytes} B at 3.35 TB/s)")
+    return row
 
+
+def phase_kernel_timings(cl, capture, launches):
+    import torch
+    from repro_torch.kernels import fleet_read, fleet_read_plain
+    rows = [race_lookup_row(capture, launches)]
     # fleet_read at the largest read sweep the main path made, through the
     # pool's own entry (coordinates in one upload buffer, words into a
     # staging buffer), beside the public wrapper

@@ -45,7 +45,8 @@ from . import ordered
 from .events import CRASHED, OK, OpResult
 from .faults import ClientCrashed, OrderedIndexDisabled, SchedulerStalled
 from .shadow import build_shadow
-from ..kernels.race_lookup import race_lookup
+from .staging import Staging
+from ..kernels.race_lookup.ops import MASK24, check_table, race_lookup_probe
 from ..obs.registry import Registry
 
 __all__ = ["Op", "KVFuture", "KVStore", "SimBackend"]
@@ -161,13 +162,50 @@ def _fold32(key64: int) -> int:
     return (key64 ^ (key64 >> 32)) & 0xFFFFFFFF
 
 
-def probe_to_host(q: torch.Tensor, shadow: torch.Tensor):
-    """One batched RACE probe on the tensors' device, results as host numpy
-    arrays (ptr int64, found bool) in one copy back."""
-    ptr, found = race_lookup(q, shadow)
-    both = torch.stack([ptr.to(torch.int64), found.to(torch.int64)])
-    host = both.to("cpu").numpy()
-    return host[0], host[1].astype(bool)
+def fold32(keys64: np.ndarray) -> np.ndarray:
+    """``_fold32`` of a uint64 array of keys."""
+    return (keys64 ^ (keys64 >> 32)) & 0xFFFFFFFF
+
+
+class _ProbeStage:
+    """The buffers of a device's probes: the keys are written into a pinned
+    mirror and go up with one copy, the kernel writes the packed answers
+    into pinned host memory in place, and the launch ends in a sync of its
+    stream (``race_lookup_probe``, one ctypes call), so the next probe may
+    reuse them.  On a CPU device the same buffers are plain host
+    tensors."""
+
+    def __init__(self, device: torch.device):
+        self.keys = Staging(device, torch.int64)
+        self.out = Staging(device, torch.int32)
+
+    def probe(self, q: np.ndarray, table: torch.Tensor) -> np.ndarray:
+        n = q.size
+        h_keys, h_np = self.keys.host(n)
+        out, out_np = self.out.host(n)
+        h_np[:] = q
+        race_lookup_probe(h_keys, self.keys.buffer(n), table, n, out)
+        return out_np.copy()
+
+
+_stages: Dict[torch.device, _ProbeStage] = {}
+
+
+def probe_to_host(q: np.ndarray, shadow: torch.Tensor) -> np.ndarray:
+    """One batched RACE probe of the uint32 keys ``q`` (any integer numpy
+    array) against ``shadow`` (a table that passed ``check_table``), on
+    the table's device: a fresh int32 numpy array of packed answers,
+    ``found << 24 | ptr`` a key (``probe_hit`` reads one)."""
+    stage = _stages.get(shadow.device)
+    if stage is None:
+        stage = _stages[shadow.device] = _ProbeStage(shadow.device)
+    return stage.probe(q, shadow)
+
+
+def probe_hit(word: int) -> int:
+    """The 1-based shadow entry of a packed answer, 0 unless it was found
+    with a nonzero pointer."""
+    return word & MASK24 if word >> 24 else 0
 
 
 class SimBackend:
@@ -368,7 +406,9 @@ class SimBackend:
         keys32 = torch.tensor([_fold32(k) for k, _ in entries],
                               dtype=torch.int64,
                               device=self.sched.pool.device)
-        return build_shadow(keys32, spb=self.SHADOW_SPB)
+        shadow = build_shadow(keys32, spb=self.SHADOW_SPB)
+        check_table(shadow)
+        return shadow
 
     def _kernel_probe(self, keys64):
         """Match ``keys64`` against the client's index cache with one
@@ -383,15 +423,15 @@ class SimBackend:
             shadow = self._shadow_index(entries)
             self._shadow = (fpr, entries, shadow)
             self._handles["shadow_rebuilds"].value += 1
-        if not entries:
+        if not entries or not keys64:
             return [None] * len(keys64)
-        q = torch.tensor([_fold32(k) for k in keys64], dtype=torch.int64,
-                         device=self.sched.pool.device)
-        ptr, found = probe_to_host(q, shadow)
+        q = fold32(np.fromiter(keys64, np.uint64, len(keys64)))
+        words = probe_to_host(q, shadow).tolist()
         out = []
-        for j, k in enumerate(keys64):
-            if found[j] and ptr[j] > 0:
-                ekey, ce = entries[int(ptr[j]) - 1]
+        for w, k in zip(words, keys64):
+            p = probe_hit(w)
+            if p:
+                ekey, ce = entries[p - 1]
                 # guard fp/fold collisions: the table entry must be OUR key
                 if ekey == k:
                     out.append(ce)

@@ -51,10 +51,12 @@ import torch
 
 from . import codec
 from . import ordered
-from .api import KVFuture, Op, SimBackend, _fold32, probe_to_host
+from .api import (KVFuture, Op, SimBackend, _fold32, fold32, probe_hit,
+                  probe_to_host)
 from .faults import SchedulerStalled
 from .shadow import build_shadow, hash32
 from .sim import Scheduler
+from ..kernels.race_lookup.ops import check_table
 
 __all__ = ["FleetEngine"]
 
@@ -115,6 +117,8 @@ class FleetEngine:
         self._tp = [0.0, 0.0, 0.0, 0.0]
         self._tp_ticks = 0
         self._fused_tp = (0.0, 0.0)
+        # probe_wave's calls and wall-clock phases (probe_wave_profile)
+        self._pw = [0, 0.0, 0.0, 0.0]
 
     # ------------------------------------------------------------- ticking
     def tick(self) -> int:
@@ -378,10 +382,14 @@ class FleetEngine:
 
         ``wants`` is ``[(backend, [key64, ...]), ...]``.  Every backend's
         eligible cache entries are folded (salted per cid) into one shared
-        shadow index; all keys are probed in a single kernel call.
+        shadow index; all keys are probed in a single kernel call (one
+        upload, one launch that writes the answers into pinned host memory,
+        one sync: ``api.probe_to_host``).
         Returns, per backend, a CacheEntry-or-None list aligned with its
         keys — exactly what ``SimBackend.submit_many(probed=...)`` takes.
         """
+        _pc = time.perf_counter
+        t0 = _pc()
         # (re)build the combined shadow only when some probing client's
         # cache moved since the last wave (same dirty signal as the
         # per-backend memo in SimBackend._kernel_probe)
@@ -402,29 +410,32 @@ class FleetEngine:
                     keys32.append(_fold32(k) ^ salt)
             shadow = build_shadow(torch.tensor(
                 keys32, dtype=torch.int64, device=self.sched.pool.device))
+            check_table(shadow)
             self._probe_memo = (fprint, entries_all, shadow)
             self._handles["shadow_rebuilds"].value += 1
-        q: List[int] = []
-        spans: List[Tuple[int, int]] = []
-        for be, keys64 in wants:
-            salt = _cid_salt(be.cid)
-            spans.append((len(q), len(keys64)))
-            q.extend(_fold32(k) ^ salt for k in keys64)
+        t1 = _pc()
+        counts = [len(keys64) for _be, keys64 in wants]
+        n = sum(counts)
         self._handles["probe_invocations"].value += 1
-        self._handles["probe_keys"].value += len(q)
-        if not entries_all or not q:
-            return [[None] * n for (_s, n) in spans]
-        ptr, found = probe_to_host(
-            torch.tensor(q, dtype=torch.int64,
-                         device=self.sched.pool.device), shadow)
+        self._handles["probe_keys"].value += n
+        if not entries_all or not n:
+            self._pw_add(t0, t1, t1)
+            return [[None] * c for c in counts]
+        salts = np.repeat(np.array([_cid_salt(be.cid) for be, _k in wants],
+                                   np.uint64), counts)
+        keys = np.fromiter(chain.from_iterable(k for _be, k in wants),
+                           np.uint64, n)
+        words = probe_to_host(fold32(keys) ^ salts, shadow).tolist()
+        t2 = _pc()
         c_hits = self._handles["probe_hits"]
         out: List[list] = []
-        for (be, keys64), (start, n) in zip(wants, spans):
+        start = 0
+        for be, keys64 in wants:
             hits = []
-            for j, key64 in enumerate(keys64):
+            for key64, w in zip(keys64, words[start:start + len(keys64)]):
                 ce = None
-                p = int(ptr[start + j])
-                if found[start + j] and p > 0:
+                p = probe_hit(w)
+                if p:
                     ecid, ekey, entry = entries_all[p - 1]
                     # exact guard: the shadow hit must be THIS client's key
                     if ecid == be.cid and ekey == key64:
@@ -433,7 +444,29 @@ class FleetEngine:
                 if ce is not None:
                     c_hits.value += 1
             out.append(hits)
+            start += len(keys64)
+        self._pw_add(t0, t1, t2)
         return out
+
+    def _pw_add(self, t0: float, t1: float, t2: float) -> None:
+        pw = self._pw
+        pw[0] += 1
+        pw[1] += t1 - t0
+        pw[2] += t2 - t1
+        pw[3] += time.perf_counter() - t2
+
+    def probe_wave_profile(self) -> Dict[str, float]:
+        """Cumulative wall-clock breakdown of ``probe_wave``: ``shadow``
+        (the fingerprint of the probing caches and, when one moved, the
+        shadow rebuild), ``probe`` (the keys folded, uploaded, probed and
+        their answers brought back) and ``resolve`` (the exact-key guard
+        per hit); ``calls`` and ``ms_per_call``.  Host-dependent, so kept
+        on the engine like ``tick_phase_profile``."""
+        calls, shadow, probe, resolve = self._pw
+        total = shadow + probe + resolve
+        return {"calls": float(calls), "shadow_s": shadow, "probe_s": probe,
+                "resolve_s": resolve, "total_s": total,
+                "ms_per_call": 1e3 * total / calls if calls else 0.0}
 
     def locate_wave(self, wave: Sequence[Tuple[SimBackend, Sequence[Op]]]
                     ) -> Dict[int, List[int]]:

@@ -7,6 +7,15 @@ tensors' device decides the path: CPU tensors take ``race_lookup_plain``;
 CUDA tensors launch ``csrc/race_lookup.cu`` (replacing the JAX package's
 ``kernels/race_lookup/kernel.py::race_lookup_fwd``) or raise.  Every kernel
 launch adds one to ``race_lookup.launches``.
+
+``race_lookup_probe`` is the probe path's own entry to the same kernel,
+with the answer packed into one int32 word a key, ``found << 24 | ptr``
+(``race_lookup_packed_plain`` on a CPU table): the keys go up from a
+pinned buffer and the kernel writes the answers into pinned host memory,
+in one ctypes call that ends in a sync of the stream.  It checks nothing:
+the caller's staging buffers are contiguous and on the table's device,
+and the caller checks its memoized table once, with ``check_table``, when
+it builds it.
 """
 from __future__ import annotations
 
@@ -17,7 +26,8 @@ import torch
 
 from .. import build
 
-__all__ = ["race_lookup", "race_lookup_plain", "hash32"]
+__all__ = ["race_lookup", "race_lookup_plain", "race_lookup_packed_plain",
+           "race_lookup_probe", "check_table", "hash32"]
 
 MASK24 = (1 << 24) - 1
 MASK32 = 0xFFFFFFFF
@@ -63,53 +73,99 @@ def race_lookup_plain(keys: torch.Tensor, table: torch.Tensor):
     return ptr.to(torch.int32), found
 
 
+def race_lookup_packed_plain(keys: torch.Tensor, table: torch.Tensor
+                             ) -> torch.Tensor:
+    """``race_lookup_plain``'s answer packed into one int32 word a key,
+    ``found << 24 | ptr`` (exact: ptr < 2^24)."""
+    ptr, found = race_lookup_plain(keys, table)
+    return ptr | (found.to(torch.int32) << 24)
+
+
+def check_table(table: torch.Tensor) -> None:
+    """Raise unless ``table`` is a contiguous, non-empty (nb, spb) int32
+    slot table on the CPU or a CUDA device."""
+    if table.dim() != 2:
+        raise ValueError(f"race_lookup: table must be (nb, spb), got "
+                         f"{tuple(table.shape)}")
+    if table.dtype != torch.int32:
+        raise TypeError(f"race_lookup: int32 table expected, got "
+                        f"{table.dtype}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"race_lookup: unsupported device {table.device}")
+    if table.device.type == "cuda" and (
+            table.shape[0] == 0 or table.shape[1] == 0
+            or not table.is_contiguous()):
+        raise ValueError("race_lookup: the table on the card must be "
+                         "contiguous and non-empty")
+
+
 def _check_inputs(keys: torch.Tensor, table: torch.Tensor):
-    if keys.dim() != 1 or table.dim() != 2:
-        raise ValueError(f"race_lookup: keys must be (N,), table (nb, spb); "
-                         f"got {tuple(keys.shape)} and {tuple(table.shape)}")
-    if keys.dtype != torch.int64 or table.dtype != torch.int32:
-        raise TypeError(f"race_lookup: keys int64 and table int32 expected, "
-                        f"got {keys.dtype} and {table.dtype}")
+    if keys.dim() != 1:
+        raise ValueError(f"race_lookup: keys must be (N,), got "
+                         f"{tuple(keys.shape)}")
+    if keys.dtype != torch.int64:
+        raise TypeError(f"race_lookup: int64 keys expected, got "
+                        f"{keys.dtype}")
     if keys.device != table.device:
         raise ValueError(f"race_lookup: keys on {keys.device}, "
                          f"table on {table.device}")
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C entry point of ``csrc/race_lookup.cu``, built and typed on
-    first use."""
-    fn = build.load("race_lookup").race_lookup_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _launchers():
+    """The C entry points of ``csrc/race_lookup.cu``, built and typed on
+    first use: (race_lookup_launch, race_lookup_probe)."""
+    lib = build.load("race_lookup")
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    launch, probe = lib.race_lookup_launch, lib.race_lookup_probe
+    launch.argtypes = [P, P, LL, I, I, P, P, P, P]
+    probe.argtypes = [P, P, P, LL, I, I, P, P]
+    launch.restype = probe.restype = I
+    return launch, probe
 
 
 def race_lookup(keys: torch.Tensor, table: torch.Tensor):
     """Batched RACE probe on the inputs' device (see module docstring)."""
+    if table.device.type == "cuda":
+        table = table.contiguous()
+    check_table(table)
     _check_inputs(keys, table)
     if keys.device.type == "cpu":
         return race_lookup_plain(keys, table)
-    if keys.device.type != "cuda":
-        raise ValueError(f"race_lookup: unsupported device {keys.device}")
-    if table.shape[0] == 0 or table.shape[1] == 0:
-        raise ValueError("race_lookup: empty shadow table")
     keys = keys.contiguous()
-    table = table.contiguous()
     n = keys.numel()
     nb, spb = table.shape
     ptr = torch.empty(n, dtype=torch.int32, device=keys.device)
     found = torch.empty(n, dtype=torch.bool, device=keys.device)
     if n == 0:
         return ptr, found                       # nothing to launch
-    err = _launcher()(keys.data_ptr(), table.data_ptr(), n, nb, spb,
-                      ptr.data_ptr(), found.data_ptr(),
-                      build.stream_ptr(keys.device))
+    err = _launchers()[0](keys.data_ptr(), table.data_ptr(), n, nb, spb,
+                          ptr.data_ptr(), found.data_ptr(), None,
+                          build.stream_ptr(keys.device))
     build.check(err, "race_lookup")
     race_lookup.launches += 1
     return ptr, found
+
+
+def race_lookup_probe(h_keys: torch.Tensor, d_keys: torch.Tensor,
+                      table: torch.Tensor, n: int, out: torch.Tensor) -> None:
+    """The probe path's entry (see module docstring): the first ``n``
+    int64 keys of the pinned buffer ``h_keys`` are copied into the device
+    buffer ``d_keys`` and probed against ``table``, and the kernel writes
+    their packed answers into ``out``, pinned host memory, across the bus;
+    the stream is synchronised before it returns.  On a CPU table ``out``
+    gets ``race_lookup_packed_plain`` of ``h_keys``."""
+    if table.device.type == "cpu":
+        out[:n] = race_lookup_packed_plain(h_keys[:n], table)
+        return
+    if n == 0:
+        return                                  # nothing to launch
+    nb, spb = table.shape
+    err = _launchers()[1](h_keys.data_ptr(), d_keys.data_ptr(),
+                          table.data_ptr(), n, nb, spb, out.data_ptr(),
+                          build.stream_ptr(table.device))
+    build.check(err, "race_lookup")
+    race_lookup.launches += 1
 
 
 race_lookup.launches = 0

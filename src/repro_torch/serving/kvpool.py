@@ -213,8 +213,9 @@ class KVPool:
         ptr, found = race_lookup(kt & 0xFFFFFFFF, idx2d)
         page_keys = self.log[ptr.to(torch.int64), 2]
         verified = found & (page_keys == kt)
-        ptr, found, verified = (ptr.cpu().numpy(), found.cpu().numpy(),
-                                verified.cpu().numpy())
+        host = torch.stack([ptr, found.to(torch.int32),
+                            verified.to(torch.int32)]).cpu().numpy()
+        ptr, found, verified = host[0], host[1] != 0, host[2] != 0
         shadowed = found & ~verified
         if shadowed.any():
             # collision path (read amplification): probe ALL candidate

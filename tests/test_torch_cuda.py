@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain torch version
-(``fleet_read`` through its public wrapper and the pool's entry,
+(``race_lookup`` through its public wrapper and the probe path's packed
+entry, ``fleet_read`` through its public wrapper and the pool's entry,
 ``leaf_probe`` on device and pinned host memory), the staging buffers, a
 fleet tick's rows kept across the next tick, and a seeded fleet run,
 fault run, YCSB-E run (with a client crashed inside a leaf split) and
@@ -16,12 +17,14 @@ import pytest
 import torch
 
 import repro_torch.core as T
+from repro_torch.core import api as port_api
 from repro_torch.core.shadow import build_shadow
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  fleet_read, fleet_read_plain, leaf_probe,
                                  leaf_probe_plain, paged_attention,
                                  paged_attention_plain, race_lookup,
                                  race_lookup_plain)
+from repro_torch.kernels.race_lookup.ops import race_lookup_packed_plain
 
 from _torch_parity import (assert_same_run, attn_bound, port_serve_run,
                            require_cuda, signature, uniform_attn_inputs,
@@ -49,6 +52,65 @@ def test_race_lookup_kernel_matches_plain(spb):
     assert race_lookup.launches == before + 1
     assert torch.equal(p_k, p_p) and torch.equal(f_k, f_p)
     assert bool(f_k[:3].all())
+
+
+def _probe_case(spb, n, seed):
+    """Keys (n,) and a shadow table of 3 000 seeded keys at ``spb`` (13 ·
+    2^k buckets, not a power of two, for odd widths): the edge keys,
+    stored keys and absent ones."""
+    rng = np.random.default_rng(seed)
+    stored = np.concatenate([EDGE_KEYS[:3], rng.integers(0, 1 << 32, 3000)])
+    dev = torch.device("cuda")
+    table = build_shadow(torch.tensor(stored, device=dev), spb=spb,
+                         min_buckets=13 if spb % 2 else 16)
+    q = np.concatenate([EDGE_KEYS, stored[rng.integers(0, stored.size, n)],
+                        rng.integers(0, 1 << 32, n)])
+    return q[rng.permutation(q.size)][:n], table
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 4096, 65536])
+@pytest.mark.parametrize("spb", [1, 2, 7, 8, 16, 17, 33])
+def test_race_lookup_kernel_matches_plain_at_every_width(spb, n):
+    """The kernel (lane groups of 2, 4, 16 and 32, one and more slots a
+    lane) against the plain version, bit for bit, through the public
+    wrapper and the probe path's packed entry; each launch adds one to
+    the count, and N = 0 launches nothing."""
+    require_cuda()
+    q, table = _probe_case(spb, n, seed=spb * 100 + n)
+    keys = torch.from_numpy(q.astype(np.int64)).cuda()
+    want_p, want_f = race_lookup_plain(keys, table)
+    before = race_lookup.launches
+    p_k, f_k = race_lookup(keys, table)
+    torch.cuda.synchronize()
+    assert race_lookup.launches == before + (n > 0)
+    assert torch.equal(p_k, want_p) and torch.equal(f_k, want_f)
+    packed = port_api.probe_to_host(q, table)
+    assert race_lookup.launches == before + 2 * (n > 0)
+    want = race_lookup_packed_plain(keys, table).cpu().numpy()
+    assert packed.dtype == np.int32 and np.array_equal(packed, want)
+    if n >= 16:
+        assert 0 < int(want_f.sum()) < n        # hits and misses both
+
+
+def test_back_to_back_probes_keep_their_answers():
+    """Probes through the packed entry reuse one pinned mirror and one
+    device buffer: each answer is a fresh array that the next probes
+    (larger, smaller, and through the public wrapper between them) leave
+    as it was."""
+    require_cuda()
+    q, table = _probe_case(8, 4096, seed=11)
+    want = race_lookup_packed_plain(torch.from_numpy(q).cuda(), table)
+    want = want.cpu().numpy()
+    answers = [port_api.probe_to_host(q, table),
+               port_api.probe_to_host(q[:17], table)]
+    race_lookup(torch.from_numpy(q[::-1].copy()).cuda(), table)
+    answers.append(port_api.probe_to_host(q[::-1].copy(), table))
+    answers.append(port_api.probe_to_host(q[5:9], table))
+    torch.cuda.synchronize()
+    assert np.array_equal(answers[0], want)
+    assert np.array_equal(answers[1], want[:17])
+    assert np.array_equal(answers[2], want[::-1])
+    assert np.array_equal(answers[3], want[5:9])
 
 
 def test_fleet_read_kernel_matches_plain():
@@ -321,6 +383,41 @@ def test_fleet_run_on_cuda_matches_cpu():
     assert race_lookup.launches > before[0]
     assert fleet_read.launches > before[1]
     assert_same_run(signature(*_fleet_run("cpu")), gpu)
+
+
+def _probe_run(device):
+    """16 clients GET 32 keys in six waves of four GETs each: most GETs of
+    the later waves hit the clients' index caches through probe_wave."""
+    n_clients, n_keys = 16, 32
+    cl = T.FuseeCluster(T.DMConfig(num_mns=4, replication=2),
+                        num_clients=n_clients, seed=5, device=device)
+    fleet = cl.fleet()
+    for k in range(n_keys):
+        cl.scheduler.submit(k % n_clients, "insert", k, [k, 1 << 63])
+    fleet.run()
+    backends = [cl.store(c, max_inflight=0).backend for c in range(n_clients)]
+    wl = cl.rng.stream("workload")
+    for _ in range(6):
+        fleet.submit_wave([(be, [T.Op.get(int(k)) for k in
+                                 wl.integers(n_keys, size=4)])
+                           for be in backends])
+        fleet.run()
+    return cl, fleet
+
+
+def test_fleet_probe_hits_on_cuda_match_cpu():
+    """probe_wave on the card: one race_lookup launch per wave, the same
+    probe hits and the same run as on the CPU."""
+    require_cuda()
+    before = race_lookup.launches
+    cl, fleet = _probe_run("cuda")
+    st = fleet.stats()
+    assert race_lookup.launches - before == st["probe_invocations"] == 6
+    c_cl, c_fleet = _probe_run("cpu")
+    c_st = c_fleet.stats()
+    assert st["probe_hits"] == c_st["probe_hits"] > 0
+    assert st["shadow_rebuilds"] == c_st["shadow_rebuilds"]
+    assert_same_run(signature(c_cl, c_fleet), signature(cl, fleet))
 
 
 def _add_mn_run(device):

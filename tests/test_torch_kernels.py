@@ -3,7 +3,10 @@
 * RACE probe: ``hash32``, ``build_shadow`` and the plain ``race_lookup`` of
   ``repro_torch`` against ``repro.core.shadow``, ``race_lookup_ref`` and the
   Pallas kernel ``race_lookup_fwd`` in interpret mode, at the shapes of
-  ``tests/test_kernels.py`` plus the edge keys 0, 2^31 and 2^32-1.
+  ``tests/test_kernels.py`` plus the edge keys 0, 2^31 and 2^32-1; the
+  packed answer (``race_lookup_packed_plain`` and the probe path's
+  ``core.api.probe_to_host``) on crafted tables: b2 colliding with b1, a
+  fingerprint hash of 0, full rows, one fingerprint in both buckets.
 * Fused-tick READ sweep: the plain ``fleet_read`` against ``fleet_read_ref``,
   ``fleet_read_fwd`` in interpret mode and ``DMPool._fused_read_sweep`` of a
   live reference pool.
@@ -27,6 +30,7 @@ from repro.kernels.fleet_tick.kernel import fleet_read_fwd
 from repro.kernels.fleet_tick.ref import fleet_read_ref
 from repro.kernels.race_lookup.kernel import race_lookup_fwd
 from repro.kernels.race_lookup.ref import race_lookup_ref
+from repro_torch.core import api as port_api
 from repro_torch.core import shadow as port_shadow
 from repro_torch.kernels import (KERNELS, flash_attention, fleet_read,
                                  fleet_read_plain, leaf_probe,
@@ -34,6 +38,8 @@ from repro_torch.kernels import (KERNELS, flash_attention, fleet_read,
                                  race_lookup, race_lookup_plain,
                                  reset_launches)
 from repro_torch.kernels.paged_attention.ops import SPLIT_CHUNK, split_plan
+from repro_torch.kernels.race_lookup.ops import (MASK24,
+                                                 race_lookup_packed_plain)
 
 from _torch_parity import attn_bound, port_pool_like
 
@@ -124,6 +130,146 @@ def test_race_lookup_wrapper_cpu_path_launches_nothing():
         race_lookup(keys.to(torch.int32), table)
     with pytest.raises(ValueError):
         race_lookup(keys[:, None], table)
+
+
+def _probe_of(keys: np.ndarray, nb: int):
+    """(b1, b2, fp) of uint32 keys as the reference computes them."""
+    h = ref_shadow.hash32_np
+    b1 = h(keys, 1) % nb
+    b2 = h(keys, 2) % nb
+    b2 = np.where(b2 == b1, (b1 + 1) % nb, b2)
+    fp = h(keys, 7) >> np.uint32(24)
+    return b1, b2, np.where(fp == 0, np.uint32(1), fp), h(keys, 7) >> 24
+
+
+def _crafted_probe(spb: int, n: int, seed: int):
+    """(keys (n,) uint32, table (nb, spb) uint32, expected ptr of each
+    crafted key or None): a seeded table, half its slots empty, with keys
+    laid out on rows no other crafted key touches — the edge keys 0, 2^31
+    and 2^32-1 stored; a key whose b2 collides with b1, stored in row
+    (b1 + 1) % nb; a key whose fingerprint hash is 0 (fingerprint 1),
+    stored beside a slot of fingerprint 0; one fingerprint in both buckets
+    (bucket 1's pointer must win); full rows in both buckets, once without
+    and once with a match in b2's last slot — then stored and absent
+    seeded keys."""
+    rng = np.random.default_rng(seed)
+    edges = np.array([0, 1 << 31, (1 << 32) - 1], np.uint32)
+    for nb in ((61, 67, 71, 73, 79) if n <= 64 else (1021, 1019, 1013)):
+        e1, e2, _, _ = _probe_of(edges, nb)       # not a power of two,
+        if len({*e1.tolist(), *e2.tolist()}) == 6:   # edge rows disjoint
+            break
+    table = rng.integers(0, 1 << 32, (nb, spb), dtype=np.uint64)
+    table[rng.random((nb, spb)) < 0.5] = 0
+    table = table.astype(np.uint32)
+    pool = np.concatenate([edges, np.arange(1, 1 << 20, dtype=np.uint32)])
+    b1s, b2s, fps, raw = _probe_of(pool, nb)
+    used = set()
+    keys, want = [], []
+
+    def take(pred):
+        for j in np.flatnonzero(pred):
+            r = {int(b1s[j]), int(b2s[j])}
+            if not r & used:
+                used.update(r)
+                return int(j)
+        raise AssertionError("no key left for a crafted case")
+
+    def other_fp(fp):
+        return (int(fp) % 255) + 1                # another nonzero fp
+
+    def row_of(j, b, fill, last=None):
+        table[b] = [(other_fp(fps[j]) << 24) | (fill + s)
+                    for s in range(spb)]
+        if last is not None:
+            table[b, spb - 1] = last
+
+    idx = np.arange(pool.size)
+    for j in (0, 1, 2):                           # edge keys, stored
+        assert not {int(b1s[j]), int(b2s[j])} & used
+        used.update({int(b1s[j]), int(b2s[j])})
+        col = int(rng.integers(spb))
+        table[b1s[j]][:col] = 0
+        table[b1s[j], col] = (int(fps[j]) << 24) | (100 + j)
+        keys.append(j)
+        want.append(100 + j)
+    collide = (ref_shadow.hash32_np(pool, 1) % nb
+               == ref_shadow.hash32_np(pool, 2) % nb) & (idx > 2)
+    j = take(collide)                             # b2 = (b1 + 1) % nb
+    row_of(j, b1s[j], 0x10)
+    row_of(j, b2s[j], 0x20, last=(int(fps[j]) << 24) | 200)
+    keys.append(j)
+    want.append(200)
+    j = take((raw == 0) & (idx > 2))              # fingerprint hash 0
+    table[b1s[j]] = 0
+    table[b1s[j], 0] = 0x000123                   # fp 0: never a match
+    table[b1s[j], spb - 1] = (1 << 24) | 300
+    keys.append(j)
+    want.append(300)
+    j = take(idx > 2)                             # same fp in both rows
+    row_of(j, b2s[j], 0x30)
+    table[b2s[j], 0] = (int(fps[j]) << 24) | 401
+    row_of(j, b1s[j], 0x40, last=(int(fps[j]) << 24) | 402)
+    keys.append(j)
+    want.append(402)
+    j = take(idx > 2)                             # both rows full, a miss
+    row_of(j, b1s[j], 0x50)
+    row_of(j, b2s[j], 0x60)
+    keys.append(j)
+    want.append(0)
+    j = take(idx > 2)                             # both full, b2's last
+    row_of(j, b1s[j], 0x70)
+    row_of(j, b2s[j], 0x80, last=(int(fps[j]) << 24) | 500)
+    keys.append(j)
+    want.append(500)
+    crafted = pool[keys]
+    rest = pool[rng.integers(3, pool.size, max(n - len(keys), 0))]
+    return (np.concatenate([crafted, rest])[:n], table,
+            want[:min(n, len(want))])
+
+
+@pytest.mark.parametrize("n", [0, 1, 33, 4096])
+@pytest.mark.parametrize("spb", [1, 7, 8, 16])
+def test_packed_probe_matches_reference(spb, n):
+    """The packed answer, ``found << 24 | ptr``, of the plain twin and of
+    the probe path's ``probe_to_host`` (CPU: its staging buffers and the
+    twin) against ``repro.core.shadow.race_lookup_np`` and the Pallas
+    kernel in interpret mode, bit for bit, on crafted keys and tables."""
+    reset_launches()
+    q, table, want = _crafted_probe(spb, n, seed=spb * 7 + n)
+    p_np, f_np = ref_shadow.race_lookup_np(q, table)
+    assert list(p_np[:len(want)]) == want       # the crafted cases hold
+    packed = (f_np.astype(np.int32) << 24) | p_np.astype(np.int32)
+    t = torch.from_numpy(table.view(np.int32))
+    plain = race_lookup_packed_plain(_t(q), t)
+    assert plain.dtype == torch.int32
+    assert np.array_equal(plain.numpy(), packed)
+    host = port_api.probe_to_host(q.astype(np.uint64), t)
+    assert host.dtype == np.int32 and np.array_equal(host, packed)
+    ptr, found = host & MASK24, (host >> 24) == 1
+    assert np.array_equal(ptr, p_np.astype(np.int32))
+    assert np.array_equal(found, f_np)
+    assert race_lookup.launches == 0
+    if n:
+        p_j, f_j = race_lookup_fwd(jnp.asarray(q.view(np.int32)),
+                                   jnp.asarray(table.view(np.int32)),
+                                   block_keys=min(n, 256), interpret=True)
+        assert np.array_equal(np.asarray(p_j), ptr)
+        assert np.array_equal(np.asarray(f_j), found)
+
+
+def test_probe_answer_survives_the_next_probe():
+    """``probe_to_host`` returns a fresh array: the next probe, which
+    reuses the staging buffers, leaves it as it was."""
+    q, table, _ = _crafted_probe(8, 4096, seed=3)
+    t = torch.from_numpy(table.view(np.int32))
+    first = port_api.probe_to_host(q, t)
+    kept = first.copy()
+    second = port_api.probe_to_host(q[::-1].copy(), t)
+    third = port_api.probe_to_host(q[:100], t)
+    assert np.array_equal(first, kept)
+    assert np.array_equal(second, kept[::-1])
+    assert np.array_equal(third, kept[:100])
+    assert not np.shares_memory(first, second)
 
 
 # ------------------------------------------------------ fused-tick READ sweep
