@@ -23,7 +23,9 @@ and then:
    YCSB-C.  The kernels' launch counts are set to 0 just before and read
    just after; both must be > 0.  The ``[fleet]`` lines give the shadow
    rebuilds and the host ms per ``probe_wave``, split into shadow, probe
-   and hit resolution.  Each kernel is then checked and timed on the inputs
+   and hit resolution, and from the obs hub (attached, as on every
+   cluster) the op latency in ticks per op kind (p50 / p99 / p999) and the
+   flight ring's event and drop counts.  Each kernel is then checked and timed on the inputs
    the run gave it (``race_lookup`` through the probe path's packed entry
    beside its public wrapper, on the device at N = 1, 64, the probe's N and
    65 536 and at spb 16, beside the launch floor: ``torch.cuda._sleep(0)``,
@@ -63,6 +65,16 @@ and then:
 7. fires ``add_mn`` under fleet load on the card, requires every read batch
    of the migration's dual-write windows and bulk copy to launch
    ``fleet_read`` once, and holds that run against the same run on ``cpu``;
+7b. runs step 6's two runs with the default obs hub, with the hot-key
+   monitor and with a recording verb tracer on ``cuda`` and on ``cpu`` and
+   requires an equal obs surface (``[obs]`` lines: deterministic metrics,
+   flight ring, hotspot block, verb ring, span trees, profile); the traced
+   fleet run must have left the fused tick, and its flight ring and span
+   trees are written as Perfetto JSON and loaded back;
+7c. times the obs hub's and the verb tracer's cost per fleet tick on the
+   card in the modes of the JAX package's ``obs_overhead`` and
+   ``trace_overhead`` benchmarks (``[obs] overhead`` line; reported, not
+   gated);
 8. holds ``flash_attention`` and ``paged_attention`` against their plain
    versions at the edges (bf16 and f32, GQA groups 1 and 4, ragged, tile-
    edge, split-edge and page-edge lengths; run right after step 2);
@@ -219,14 +231,17 @@ def signature(cl, fleet=None):
 
 
 # ---------------------------------------------------------- small scenarios
-def small_fleet_run(device: str, seed: int = 3):
-    """24 clients, 64 keys: preload, then YCSB-A through submit_wave."""
+def small_fleet_run(device: str, seed: int = 3, prep=None):
+    """24 clients, 64 keys: preload, then YCSB-A through submit_wave.
+    ``prep(cluster)``, when given, runs right after construction."""
     import numpy as np
     from _torch_parity import drive_waves
     from repro_torch.core import FuseeCluster, Op
     n_clients, n_keys = 24, 64
     cfg = fleet_dmconfig(n_clients, n_keys, n_mns=4, replication=2)
     cl = FuseeCluster(cfg, num_clients=n_clients, seed=seed, device=device)
+    if prep is not None:
+        prep(cl)
     fleet = cl.fleet()
     backends = [cl.store(c, max_inflight=0).backend for c in range(n_clients)]
     drive_waves(fleet, backends, [[Op.insert(k, [k, c]) for k in
@@ -243,14 +258,17 @@ def small_fleet_run(device: str, seed: int = 3):
     return cl, fleet
 
 
-def fault_run(device: str, seed: int = 1):
+def fault_run(device: str, seed: int = 1, prep=None):
     """Step-mode ops with a client crash + recovery and an MN crash with
-    auto-recovery; the master's direct region access runs on ``device``."""
+    auto-recovery; the master's direct region access runs on ``device``.
+    ``prep(cluster)``, when given, runs right after construction."""
     from repro_torch.core import (ClientCrashed, DMConfig, FaultPlan,
                                   FuseeCluster, Op)
     n_clients = 6
     cl = FuseeCluster(DMConfig(num_mns=5, replication=2),
                       num_clients=n_clients, seed=seed, device=device)
+    if prep is not None:
+        prep(cl)
     plan = FaultPlan()
     plan.crash_client(2, after_ops=25)
     plan.recover_client(2, reassign_to=3, after_ops=45)
@@ -646,7 +664,26 @@ def phase_fleet(args, device="cuda"):
         f"{k} {prof[k + '_frac']:.3f}" for k in
         ("coord_build", "sweep", "scatter", "bookkeeping"))
         + f" of {prof['us_per_tick']:.0f} us")
+    if getattr(cl, "obs", None) is not None:
+        obs_summary(cl)
     return cl, fleet, acked, capture, launches, stats
+
+
+def obs_summary(cl):
+    """The obs hub's view of the fleet phase: op latency in ticks per op
+    kind (p50 / p99 / p999, bucket upper edges) and the flight ring's
+    event and drop counts."""
+    m = cl.metrics()
+    lat = ", ".join(
+        f"{name.rsplit('.', 1)[1]} {p['p50']}/{p['p99']}/{p['p999']} "
+        f"({p['count']} ops)"
+        for name, p in sorted(m["percentiles"].items())
+        if name.startswith("op.lat_ticks.kind."))
+    fl = cl.obs.flight
+    log(f"[fleet] obs hub: op latency in ticks p50/p99/p999 by kind: {lat}; "
+        f"flight ring {fl.n} events, {fl.dropped} dropped (capacity "
+        f"{fl.capacity}); {len(m['series']['mn.load']['rows'])} mn.load "
+        "rows")
 
 
 def max_abs_err(a, b) -> int:
@@ -1168,6 +1205,169 @@ def phase_migration():
     a = signature(cl, fleet)
     c_cl, c_fleet, _ = add_mn_run("cpu")
     compare(a, signature(c_cl, c_fleet), "add_mn run")
+
+
+# ------------------------------------------------------------ observability
+OBS_MODES = ("default hub", "hot-key monitor", "recording tracer")
+
+
+def _obs_prep(mode: str):
+    if mode == "hot-key monitor":
+        return lambda cl: cl.enable_hotspot()
+    if mode == "recording tracer":
+        return lambda cl: cl.attach_tracer()
+    return None
+
+
+def phase_obs_parity():
+    """The small fleet run and the fault run with the default obs hub, with
+    the hot-key monitor and with a recording verb tracer, on ``cuda`` and
+    on ``cpu``: deterministic metrics, flight ring, hotspot block, verb
+    ring, span trees and profile must be equal (``_torch_parity.
+    obs_signature``); the traced fleet run's flight ring and span trees
+    are exported to Perfetto JSON and loaded back."""
+    import repro_torch.obs as O
+    from _torch_parity import obs_signature
+    out_dir = ROOT / "build" / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for mode in OBS_MODES:
+        prep = _obs_prep(mode)
+        for name, run in (("small fleet run", small_fleet_run),
+                          ("fault run", fault_run)):
+            t0 = time.perf_counter()
+            cl = run("cuda", prep=prep)[0]
+            a = obs_signature(O, cl)
+            b = obs_signature(O, run("cpu", prep=prep)[0])
+            for k in a:
+                check(a[k] == b[k], f"[obs] {name}, {mode}: cuda and cpu "
+                      f"differ in {k}")
+            m = json.loads(a["metrics"])
+            extra = ""
+            if mode == "hot-key monitor":
+                check("hotspot" in m, f"[obs] {name}: no hotspot block")
+                hs = m["hotspot"]
+                extra = (f"; hotspot theta_milli {hs['theta_milli']}, "
+                         f"regime {hs['regime']}, keys seen "
+                         f"{hs['keys_seen']}")
+            if mode == "recording tracer":
+                check(a["trace.seq"], f"[obs] {name}: no verb recorded")
+                prof = json.loads(a["profile"])
+                check(prof["conservation"]["ok"],
+                      f"[obs] {name}: RTT conservation violated")
+                extra = (f"; {len(a['trace.seq'])} verb rows, "
+                         f"{len(a['spans.cid'])} spans, conservation "
+                         f"{prof['conservation']['attributed_rtts']} + "
+                         f"{prof['conservation']['untraced_rtts']} = "
+                         f"{prof['conservation']['total_rtts']} rtts")
+                if cl._fleet is not None:
+                    st = cl._fleet.stats()
+                    check(st["fallback_ticks"] > 0 and st["fused_ticks"] == 0,
+                          "[obs] a recording tracer left fusion on")
+                    extra += (f", {st['fallback_ticks']} ticks on the "
+                              "per-kind path")
+                    extra += "; " + perfetto_roundtrip(O, cl, out_dir)
+            log(f"[obs] {name}, {mode}: cuda and cpu equal (metrics JSON "
+                f"{len(a['metrics'])} bytes, {len(a['flight.seq'])} flight "
+                f"events){extra}, {time.perf_counter() - t0:.1f} s")
+
+
+def perfetto_roundtrip(O, cl, out_dir) -> str:
+    """Write the cluster's flight ring with its span trees nested as
+    Perfetto JSON, load it back, and check every phase span landed."""
+    ss = O.spans_from_cluster(cl)
+    obs = cl.obs
+    path = out_dir / "fleet_trace.json"
+    trace = O.flight_to_perfetto({"labels": obs.labels(),
+                                  **obs.flight_events(),
+                                  "dropped": obs.flight.dropped},
+                                 str(path), spans=ss)
+    check(O.load_perfetto(str(path)) == trace,
+          "[obs] the Perfetto trace did not load back equal")
+    phases = O.spans_to_perfetto(ss)
+    got = sum(e.get("cat") == "phase" for e in trace["traceEvents"])
+    check(got == len(phases) > 0,
+          f"[obs] the Perfetto trace holds {got} of {len(phases)} phase "
+          "events")
+    return (f"Perfetto trace of {len(trace['traceEvents'])} events "
+            f"({len(phases)} phase events) written and loaded back")
+
+
+def _overhead_run(mode: str, seed: int) -> list:
+    """One cluster of the JAX package's overhead benchmarks
+    (``benchmarks/run.py``: 64 clients, 256 keys, 8-word values): a
+    preload, then three YCSB-A batches of 512 ops; µs of host time per
+    fleet tick of each batch, on the card."""
+    import gc
+    import torch
+    from repro_torch.core import FuseeCluster
+    n_clients, n_keys, value_words = 64, 256, 8
+    cl = FuseeCluster(fleet_dmconfig(n_clients, n_keys, n_mns=4,
+                                     replication=2),
+                      num_clients=n_clients, seed=seed, device="cuda")
+    if mode == "detached":
+        cl.detach_obs()
+    elif mode == "profiled":
+        cl.enable_hotspot()
+    elif mode in ("paused", "recording"):
+        tr = cl.attach_tracer()
+        if mode == "paused":
+            tr.pause()
+    sched, fleet = cl.scheduler, cl.fleet()
+    for k in range(n_keys):
+        sched.submit(k % n_clients, "insert", k, [k] * value_words)
+    fleet.run()
+    wl = cl.rng.stream("workload")
+    kinds, weights = ("search", "update"), (0.5, 0.5)
+    samples = []
+    for _ in range(3):
+        for i in range(n_clients * 8):
+            kind = kinds[int(wl.choice(2, p=weights))]
+            key = int(wl.integers(n_keys))
+            sched.submit(i % n_clients, kind, key,
+                         [i] * value_words if kind == "update" else None)
+        gc.collect()
+        gc.disable()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ticks0 = sched.tick
+            fleet.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            gc.enable()
+        samples.append(dt * 1e6 / max(1, sched.tick - ticks0))
+    return samples
+
+
+def phase_obs_overhead():
+    """The obs hub's and the verb tracer's cost on the fleet tick, on the
+    card, in the modes of the JAX package's ``obs_overhead`` (detached,
+    attached, profiled; seed 23) and ``trace_overhead`` (off, paused,
+    recording; seed 21) benchmarks: one warm-up run, then five repeats
+    with the modes interleaved.  µs of host time per tick, min and median
+    over the repeats' batches, and the min's overhead over the first
+    mode's.  Reported, not gated."""
+    import statistics
+    t0 = time.perf_counter()
+    out = []
+    for bench, modes, seed in (
+            ("obs_overhead", ("detached", "attached", "profiled"), 23),
+            ("trace_overhead", ("off", "paused", "recording"), 21)):
+        _overhead_run(modes[0], seed)           # warm-up
+        times = {m: [] for m in modes}
+        for _ in range(5):
+            for m in modes:
+                times[m].extend(_overhead_run(m, seed))
+        best = {m: min(times[m]) for m in modes}
+        out.append(f"{bench}: " + ", ".join(
+            f"{m} {best[m]:.1f} us/tick min, "
+            f"{statistics.median(times[m]):.1f} median, "
+            f"{100.0 * (best[m] / best[modes[0]] - 1.0):+.1f}%"
+            for m in modes))
+    log(f"[obs] overhead (64 clients, 256 keys, YCSB-A, 3 batches of 512 "
+        f"ops, 5 interleaved repeats): {'; '.join(out)}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------ serving path
@@ -1749,6 +1949,8 @@ def main(argv=None) -> int:
     phase_migration()
     log("[parity] fault run, small fleet run and add_mn run: cuda and cpu "
         "signatures equal (pool bytes, health, history, counters, mn_bytes)")
+    phase_obs_parity()
+    phase_obs_overhead()
     capture, serve_launches = phase_serve(args)
     rows += phase_serve_kernels(capture, serve_launches)
     del capture

@@ -28,7 +28,8 @@ back to individual SEARCH ops, resubmitted at the batch's response tick.
 
 Counterpart of the JAX package's ``core/api.py``; SCAN/RANGE run over the
 ordered keydir (core/ordered.py), a batch's scans located by one
-``leaf_probe`` call.  Not in this slice: the obs hub hooks (A11).
+``leaf_probe`` call.  A batch's probe keys feed the obs hub's heat sketch,
+hashed on the host (``shadow.hash32_np``).
 """
 from __future__ import annotations
 
@@ -44,10 +45,10 @@ from . import codec
 from . import ordered
 from .events import CRASHED, OK, OpResult
 from .faults import ClientCrashed, OrderedIndexDisabled, SchedulerStalled
-from .shadow import build_shadow
+from .shadow import build_shadow, hash32_np
 from .staging import Staging
 from ..kernels.race_lookup.ops import MASK24, check_table, race_lookup_probe
-from ..obs.registry import Registry
+from ..obs.registry import LegacyCounters, Registry, legacy_counters_view
 
 __all__ = ["Op", "KVFuture", "KVStore", "SimBackend"]
 
@@ -228,7 +229,10 @@ class SimBackend:
         self.batch_search_min = batch_search_min
         # per-backend metrics registry ("api.*" names): backends are
         # transient (one per ``cluster.store()`` call), so each carries
-        # its own small registry rather than sharing the scheduler's
+        # its own small registry rather than sharing the scheduler's —
+        # aggregate across backends with obs.registry.snapshot_merge.
+        # The old ``counters`` dict survives as a read-only deprecation
+        # alias (see obs/registry.py).
         self.metrics = Registry()
         self._handles = {
             k: self.metrics.counter("api." + k)
@@ -238,6 +242,12 @@ class SimBackend:
         # memoized shadow index: (cache fingerprint, entries, shadow table)
         self._shadow = (None, None, None)
         self._pump_rr = 0     # rotating QP-lane pick (starvation freedom)
+
+    @property
+    def counters(self) -> LegacyCounters:
+        """Deprecated read-only view of the backend metrics under their
+        historical key names; read ``stats()`` or ``self.metrics``."""
+        return legacy_counters_view("SimBackend", self._handles)
 
     # ------------------------------------------------------------- submit
     def submit_many(self, ops: Sequence[Op], *,
@@ -423,9 +433,15 @@ class SimBackend:
             shadow = self._shadow_index(entries)
             self._shadow = (fpr, entries, shadow)
             self._handles["shadow_rebuilds"].value += 1
+        q = fold32(np.fromiter(keys64, np.uint64, len(keys64)))
+        obs = self.sched.obs
+        if obs is not None and len(q):
+            # heat sketch over the RACE first-choice bucket family (the
+            # fleet probe_wave records its own wave; the two paths are
+            # mutually exclusive per batch, so no double-count)
+            obs.heat_keys(hash32_np(q.astype(np.uint32), 1))
         if not entries or not keys64:
             return [None] * len(keys64)
-        q = fold32(np.fromiter(keys64, np.uint64, len(keys64)))
         words = probe_to_host(q, shadow).tolist()
         out = []
         for w, k in zip(words, keys64):
@@ -484,6 +500,21 @@ class SimBackend:
             # until the region is resized; size it for the keyspace)
             "ord_full_drops": self.client.ord_full_drops,
             **{k: h.value for k, h in self._handles.items()},
+            **self._hot_stats(),
+        }
+
+    def _hot_stats(self) -> Dict[str, Any]:
+        """Hot-key monitor summary (cluster-wide, not per-cid) when the
+        obs hub carries one — empty otherwise so baseline stats dicts are
+        unchanged."""
+        obs = self.sched.obs
+        if obs is None or obs.hotspot is None:
+            return {}
+        hs = obs.hotspot
+        return {
+            "hot_keys": [k for k, _c, _e in hs.sketch.top(8)],
+            "hot_theta_milli": int(round(hs.theta * 1000)),
+            "hot_regime": hs.regime,
         }
 
 

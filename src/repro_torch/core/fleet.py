@@ -36,8 +36,10 @@ and returns every result in one copy (``heap.DMPool.exec_fused_tick``);
 every READ sweep, fused or not, is one ``fleet_read`` launch, the leaf reads
 of every in-flight scan included; a wave's SCAN/RANGE starts are located by
 one ``leaf_probe`` launch (``locate_wave``, over the union of the wave's
-fence caches, sorted once per wave).  Not in this slice: the obs
-hub's per-tick sampling (A11) and the tracer fallback (A12).
+fence caches, sorted once per wave).  The obs hub samples host state once
+per tick (``ClusterObs.on_fleet_tick``) and hashes each probe wave's keys
+into its heat sketch on the host; while a verb tracer records, ticks run
+the per-kind ``*_batch`` verbs it wraps.
 """
 from __future__ import annotations
 
@@ -54,9 +56,10 @@ from . import ordered
 from .api import (KVFuture, Op, SimBackend, _fold32, fold32, probe_hit,
                   probe_to_host)
 from .faults import SchedulerStalled
-from .shadow import build_shadow, hash32
+from .shadow import build_shadow, hash32, hash32_np
 from .sim import Scheduler
 from ..kernels.race_lookup.ops import check_table
+from ..obs.registry import LegacyCounters, legacy_counters_view
 
 __all__ = ["FleetEngine"]
 
@@ -83,7 +86,8 @@ class FleetEngine:
     def __init__(self, scheduler: Scheduler):
         self.sched = scheduler
         # fleet counters live in the scheduler's metrics registry under
-        # "fleet.<name>" dotted names
+        # "fleet.<name>" dotted names; the old ``counters`` dict survives
+        # as a read-only deprecation alias (see obs/registry.py).
         reg = scheduler.metrics
         names = ("ticks", "verbs", "array_calls", "master_calls",
                  "index_probe_verbs", "probe_invocations", "probe_keys",
@@ -120,6 +124,12 @@ class FleetEngine:
         # probe_wave's calls and wall-clock phases (probe_wave_profile)
         self._pw = [0, 0.0, 0.0, 0.0]
 
+    @property
+    def counters(self) -> LegacyCounters:
+        """Deprecated read-only view of the fleet metrics under their
+        historical key names; read ``stats()`` or the registry instead."""
+        return legacy_counters_view("FleetEngine", self._handles)
+
     # ------------------------------------------------------------- ticking
     def tick(self) -> int:
         """One fleet tick: scheduler tick preamble (fault hooks, MN-failure
@@ -151,11 +161,15 @@ class FleetEngine:
         self._g_max_lanes.set_max(lanes)
 
         finished: List[Tuple[int, Any]] = []
-        epoch = sched.pool.epoch
-        # the fused sweep cannot mirror migration dual-writes: those ticks
-        # run the per-kind *_batch verbs (which mirror; their READ still
-        # launches fleet_read)
-        use_fused = not sched.pool.migrations
+        pool = sched.pool
+        epoch = pool.epoch
+        tr = pool._tracer
+        # the fused sweep bypasses the *_batch entry points (which a
+        # recording tracer instruments via instance-attribute wrappers)
+        # and cannot mirror migration dual-writes — those ticks run the
+        # per-kind *_batch verbs (their READ still launches fleet_read)
+        # rather than silently dropping verbs
+        use_fused = not pool.migrations and (tr is None or tr.paused)
         live_by_kind: Dict[str, list] = {}
         for kind, items in by_kind.items():
             self._c_verbs_kind[kind].value += len(items)
@@ -239,6 +253,20 @@ class FleetEngine:
     def _exec_kind(self, kind: str, items) -> list:  # lint: allow-epoch (tick() drops stale-epoch verbs before dispatch)
         pool = self.sched.pool
         verbs = [v for (_c, _r, _i, v) in items]
+        tr = pool._tracer
+        if tr is not None and not tr.paused \
+                and kind in ("read", "write", "cas", "faa"):
+            # per-verb issue context for the tracer: one batch, one call
+            tr.set_batch_ctx(
+                self.sched.tick,
+                [c for (c, _r, _i, _v) in items],
+                [r.record.op_id for (_c, r, _i, _v) in items],
+                [r.phase_no for (_c, r, _i, _v) in items],
+                [tr.intern(r.phase_label) for (_c, r, _i, _v) in items],
+                [v.epoch for v in verbs],
+                [tr.intern(r.phase_cause) if r.phase_cause else -1
+                 for (_c, r, _i, _v) in items],
+                [1 if r.phase_bg else 0 for (_c, r, _i, _v) in items])
         if kind == "read":
             self._c_array.value += 1
             shard_set = pool.index_region_set
@@ -418,14 +446,22 @@ class FleetEngine:
         n = sum(counts)
         self._handles["probe_invocations"].value += 1
         self._handles["probe_keys"].value += n
+        if n:
+            keys32 = fold32(np.fromiter(
+                chain.from_iterable(k for _be, k in wants), np.uint64, n))
+            obs = self.sched.obs
+            if obs is not None:
+                # heat sketch: UNsalted fold32 keys hashed into the RACE
+                # first-choice bucket family on the host — one vectorized
+                # update per wave, recorded even when no cache can hit
+                k32 = keys32.astype(np.uint32)
+                obs.heat_keys(hash32_np(k32, 1), keys32=k32)
         if not entries_all or not n:
-            self._pw_add(t0, t1, t1)
+            self._pw_add(t0, t1, _pc())
             return [[None] * c for c in counts]
         salts = np.repeat(np.array([_cid_salt(be.cid) for be, _k in wants],
                                    np.uint64), counts)
-        keys = np.fromiter(chain.from_iterable(k for _be, k in wants),
-                           np.uint64, n)
-        words = probe_to_host(fold32(keys) ^ salts, shadow).tolist()
+        words = probe_to_host(keys32 ^ salts, shadow).tolist()
         t2 = _pc()
         c_hits = self._handles["probe_hits"]
         out: List[list] = []
@@ -458,9 +494,10 @@ class FleetEngine:
     def probe_wave_profile(self) -> Dict[str, float]:
         """Cumulative wall-clock breakdown of ``probe_wave``: ``shadow``
         (the fingerprint of the probing caches and, when one moved, the
-        shadow rebuild), ``probe`` (the keys folded, uploaded, probed and
-        their answers brought back) and ``resolve`` (the exact-key guard
-        per hit); ``calls`` and ``ms_per_call``.  Host-dependent, so kept
+        shadow rebuild), ``probe`` (the keys folded, hashed into the obs
+        hub's heat sketch when one is attached, uploaded, probed and their
+        answers brought back) and ``resolve`` (the exact-key guard per
+        hit); ``calls`` and ``ms_per_call``.  Host-dependent, so kept
         on the engine like ``tick_phase_profile``."""
         calls, shadow, probe, resolve = self._pw
         total = shadow + probe + resolve

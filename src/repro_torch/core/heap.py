@@ -305,8 +305,10 @@ class DMPool:
         # traffic accounting (bytes in+out per MN) for the network model;
         # a host array — liveness and placement are host facts
         self.mn_bytes = np.zeros(cfg.num_mns, dtype=np.int64)
-        # hook sites of the verb tracer (ROADMAP A12) and the obs hub
-        # (A11); neither is ported, so both stay None
+        # verb tracer (repro_torch.analysis.trace) — None unless attached;
+        # the tracer installs instance-attribute wrappers over the verb
+        # entry points.  Observability hub (repro_torch.obs.ClusterObs) —
+        # None unless attached (FuseeCluster attaches one by default).
         self._tracer = None
         self._obs = None
         # fused-tick (region, replica) -> (cell, mid) lookup table, cached

@@ -64,6 +64,7 @@ from . import layout as L
 from .faults import InsufficientReplicas, SchedulerStalled
 from .heap import DMPool
 from .ring import ring_replicas
+from ..obs.registry import LegacyCounters, legacy_counters_view
 
 __all__ = ["MigrationEngine", "RegionMigration"]
 
@@ -110,11 +111,18 @@ class MigrationEngine:
         # checker's enumerated schedule.
         self.manual = False
         # migration counters live in the scheduler's metrics registry
-        # under "migrate.<name>"
+        # under "migrate.<name>"; the old ``counters`` dict survives as a
+        # read-only deprecation alias (see obs/registry.py).
         self._handles = {
             k: scheduler.metrics.counter("migrate." + k)
             for k in ("migrations", "cutovers", "aborts", "copied_words",
                       "adds", "removes", "retires")}
+
+    @property
+    def counters(self) -> LegacyCounters:
+        """Deprecated read-only view of the migration metrics under their
+        historical key names; read the registry instead."""
+        return legacy_counters_view("MigrationEngine", self._handles)
 
     # ----------------------------------------------------------- public API
     def add_mn(self) -> int:

@@ -8,14 +8,29 @@ step: torch has no unsigned arithmetic for ``+``/``>>``/``%``, and signed
 wrap-around of the int64 product leaves the low 32 bits exact.  The shadow
 table is an ``int32`` tensor of ``fp:8 | ptr:24`` slots (uint32 bit
 patterns), built on the keys' device so it never round-trips to the host.
+
+``hash32_np`` is the same hash on uint32 numpy lanes, for host code that
+must not launch a device op per call: the obs hub's heat sketch hashes each
+flush's keys with it (``obs/flight.py``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels.race_lookup.ops import (MASK24, MASK32,  # noqa: F401
                                        bucket_pair, fingerprint32, hash32,
                                        race_lookup_plain)
+
+
+def hash32_np(x: np.ndarray, seed: int) -> np.ndarray:
+    """``hash32`` on uint32 numpy lanes (uint32 out)."""
+    with np.errstate(over="ignore"):
+        x = x.astype(np.uint32) + np.uint32((0x9E3779B9 * (seed + 1))
+                                            & 0xFFFFFFFF)
+        x = (x ^ (x >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+        x = (x ^ (x >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+        return (x ^ (x >> np.uint32(16))).astype(np.uint32)
 
 
 def _rank_within(sorted_groups: torch.Tensor) -> torch.Tensor:

@@ -19,23 +19,25 @@ cluster lifecycle as a first-class API (the failure counterpart of the
 * **observability** — ``health()`` returns a ``ClusterHealth`` snapshot:
   per-MN liveness, lease epoch, per-client pipeline depth and cache
   state, and cumulative ``RecoveryStats`` across every recovery the
-  cluster performed.
+  cluster performed; ``metrics()`` the registry snapshot of the obs hub
+  (``repro_torch.obs``), attached at construction; ``attach_tracer()``
+  and ``profile()`` the verb tracer and the causal RTT profile.
 
 Concurrency/crash tests that need verb-level schedules still drive
 ``sim.Scheduler`` directly.
 
 Counterpart of the JAX package's ``core/store.py``.  ``FuseeCluster(...,
 device=None)`` keeps the whole region slab on ``"cuda"`` and raises where
-no GPU is present; pass ``device="cpu"`` to run on the CPU.  Not in this
-slice (each raises ``NotImplementedError`` naming its ROADMAP item): the obs
-hub's ``metrics`` / ``profile`` / hot-key monitor (A11), and the verb
-tracer, race detector and heap auditor (A12).
+no GPU is present; pass ``device="cpu"`` to run on the CPU.  The obs hub
+and the verb tracer are host numpy and read no device tensor.  Not ported
+yet (each raises ``NotImplementedError`` naming ROADMAP A12.2): the race
+detector and the heap auditor.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-from .api import KVStore, SimBackend
+from .api import KINDS, KVStore, SimBackend
 from .client import FuseeClient
 from .events import CRASHED
 from .faults import (ClientCrashed, ClientHealth, ClusterHealth, FaultInjector,
@@ -46,6 +48,8 @@ from .master import Master
 from .migrate import MigrationEngine
 from .rng import SimRng
 from .sim import Choice, Scheduler, SimTrace
+from ..configs.fusee_paper import FuseePaperConfig
+from ..obs.flight import ClusterObs
 
 
 def _not_ported(what: str, item: str):
@@ -59,6 +63,7 @@ class FuseeCluster:
                  cache_threshold: float = 0.5,
                  replication_mode: str = "snapshot",
                  mn_detect_delay: int = 0,
+                 obs_dump_dir: Optional[str] = None,
                  device=None):
         self.cfg = cfg or DMConfig()
         self.seed = seed
@@ -82,6 +87,18 @@ class FuseeCluster:
         self.migrator = MigrationEngine(self.pool, self.master,
                                         self.scheduler)
         self.master.migrator = self.migrator
+        # observability hub (repro_torch.obs): op-level flight recorder,
+        # latency histograms, per-MN load series, heat sketch — attached to
+        # the hot-path hook points by default; detach_obs() restores the
+        # structurally-zero-cost path (one is-None test per hook site).
+        # The cap-model link rate comes from the paper config: one tick is
+        # one verb RTT, so link_gbps/8 * rtt_us of bytes move per tick.
+        pc = FuseePaperConfig()
+        self.obs = ClusterObs(
+            self.scheduler, self.pool, kinds=KINDS + ("search_batch",),
+            link_bytes_per_tick=pc.link_gbps * 1e9 / 8 * pc.rtt_us * 1e-6,
+            dump_dir=obs_dump_dir)
+        self.attach_obs()
         self._fleet = None
         self.clients: Dict[int, FuseeClient] = {}
         self._next_cid = 0
@@ -162,6 +179,15 @@ class FuseeCluster:
         self._free_cids.append(cid)
         self._bump_epoch()
 
+    def _master_trace_ctx(self):
+        """Attribute the upcoming pool traffic to the master in the verb
+        trace: direct API calls (recover_client, add/remove_mn, rebalance)
+        run outside a scheduler tick, so the tracer context may still hold
+        the last-stepped client's identity."""
+        tr = self.pool._tracer
+        if tr is not None:
+            tr.set_master_ctx(self.scheduler.tick)
+
     def _bump_epoch(self):
         """Commit a lease-epoch bump to every live client — the same
         membership commit the master performs after MN recovery (§5.2)."""
@@ -180,6 +206,7 @@ class FuseeCluster:
         workload) the call drives the migrations to completion; with
         ``wait=False`` they ride the workload's own scheduler/fleet ticks.
         Returns the new MN id."""
+        self._master_trace_ctx()
         mid = self.migrator.add_mn()
         if wait:
             self.migrator.drive()
@@ -189,6 +216,7 @@ class FuseeCluster:
         """Gracefully drain + retire a memory node (online scale-in).
         Raises the typed ``InsufficientReplicas`` if removal would leave
         fewer members than the replication factor."""
+        self._master_trace_ctx()
         self.migrator.remove_mn(mid)
         if wait:
             self.migrator.drive()
@@ -196,6 +224,7 @@ class FuseeCluster:
     def rebalance(self, *, wait: bool = True) -> int:
         """Re-place index shards on the current membership ring; returns
         the number of shard migrations started."""
+        self._master_trace_ctx()
         n = self.migrator.rebalance()
         if wait:
             self.migrator.drive()
@@ -205,11 +234,17 @@ class FuseeCluster:
     def crash_mn(self, mid: int):
         """Crash-stop an MN; the scheduler auto-detects and the master
         re-homes its regions (Alg. 3) ``mn_detect_delay`` ticks later."""
+        obs = self.scheduler.obs
+        if obs is not None:
+            obs.fault("crash_mn", mid, self.scheduler.tick)
         self.scheduler.crash_mn(mid)
 
     def crash_client(self, cid: int):
         """Crash-stop a client; its in-flight futures resolve ``CRASHED``
         (retriable) and later submits raise ``ClientCrashed``."""
+        obs = self.scheduler.obs
+        if obs is not None:
+            obs.fault("crash_client", cid, self.scheduler.tick)
         self.scheduler.crash_client(cid)
 
     def recover_client(self, cid: int, reassign_to_cid: Optional[int] = None
@@ -218,9 +253,17 @@ class FuseeCluster:
         logs; stats also accumulate into ``health().recovery``."""
         target = (self.clients[reassign_to_cid]
                   if reassign_to_cid is not None else None)
+        self._master_trace_ctx()
         st = self.master.recover_client(cid, reassign_to=target)
         accumulate_recovery(self.recovery_totals, st)
         self.client_recoveries += 1
+        obs = self.scheduler.obs
+        if obs is not None:
+            obs.recovery("client_recovery", self.scheduler.tick, cid=cid,
+                         arg=st.redone_ops,
+                         rtts=(st.get_metadata_rtts + st.traverse_log_rtts
+                               + st.recover_requests_rtts
+                               + st.construct_free_list_rtts))
         return st
 
     def inject(self, plan: FaultPlan) -> FaultInjector:
@@ -267,26 +310,91 @@ class FuseeCluster:
         """Re-execute a recorded schedule verbatim (see ``trace``)."""
         self.scheduler.run_trace(trace, start=start)
 
-    # ---------------------------------------------- sanitizers and telemetry
+    # ------------------------------------------------------------ sanitizers
     def attach_tracer(self, capacity: int = 1 << 16):
-        """Verb tracer over the pool."""
-        _not_ported("the verb tracer", "A12")
+        """Attach a verb tracer (``repro_torch.analysis``) to this cluster's
+        pool and return it.  While attached, every one-sided verb is
+        appended to a fixed-capacity host ring, and the fleet engine runs
+        the per-kind batch verbs instead of the fused tick (which bypasses
+        the wrapped entry points) unless the tracer is paused; ``detach()``
+        restores the unwrapped verbs (zero residual cost).  Idempotent:
+        returns the existing tracer if one is already attached."""
+        from ..analysis.trace import VerbTracer  # local: analysis is opt-in
+        if self.pool._tracer is not None:
+            return self.pool._tracer
+        return VerbTracer(capacity=capacity).attach(self.pool)
 
     def race_findings(self, rules=None, on_truncated: str = "warn"):
         """Happens-before race pass over traced verbs."""
-        _not_ported("the race detector", "A12")
+        _not_ported("the race detector", "A12.2")
 
     def heap_audit(self):
         """Post-drain DM heap/epoch sanitizer."""
-        _not_ported("the heap auditor", "A12")
+        _not_ported("the heap auditor", "A12.2")
+
+    # --------------------------------------------------------- observability
+    def attach_obs(self) -> ClusterObs:
+        """(Re)attach the observability hub to the hot-path hook points
+        (scheduler op begin/settle, fleet per-tick sampling, heap heat)."""
+        self.scheduler.obs = self.obs
+        self.pool._obs = self.obs
+        return self.obs
+
+    def detach_obs(self) -> ClusterObs:
+        """Detach the hub: every hook site degrades to one attribute load
+        + ``is None`` test.  The metrics registry itself stays live —
+        fleet / migration counters are plain handle bumps, not hub
+        hooks."""
+        self.obs.flush()
+        self.scheduler.obs = None
+        self.pool._obs = None
+        return self.obs
 
     def metrics(self) -> Dict:
-        """Registry snapshot with latency percentiles from the obs hub."""
-        _not_ported("the obs hub (metrics)", "A11")
+        """Registry snapshot plus a latency summary: for every op-latency
+        histogram, conservative p50/p99/p999 (bucket upper edges) and the
+        sample count.  Deterministic — ``json.dumps`` of this snapshot is
+        byte-identical across same-(seed, config, schedule) runs, on any
+        device and in either package.  When the hot-key monitor is enabled
+        (``enable_hotspot``), a ``"hotspot"`` block (top-k keys, zipf-θ,
+        imbalance, regime) rides along — int-valued, so the determinism
+        contract is unchanged."""
+        snap = self.obs.snapshot()
+        reg = self.scheduler.metrics
+        pct: Dict[str, Dict] = {}
+        for name in snap["histograms"]:
+            h = reg.get(name)
+            pct[name] = {"count": h.total, "p50": h.percentile(0.50),
+                         "p99": h.percentile(0.99),
+                         "p999": h.percentile(0.999)}
+        snap["percentiles"] = pct
+        if self.obs.hotspot is not None:
+            snap["hotspot"] = self.obs.hotspot.snapshot()
+        return snap
+
+    def enable_hotspot(self, **kw):
+        """Turn on the streaming hot-key/skew monitor (obs/hotspot.py):
+        space-saving top-k over the heat-touch key stream, online zipf-θ,
+        EWMA shard/MN imbalance, and typed ``regime`` flight events on
+        threshold crossings.  Opt-in: the default hub carries no monitor.
+        Returns the ``HotKeyMonitor``."""
+        return self.obs.enable_hotspot(**kw)
 
     def profile(self, *, include_bg: bool = False) -> Dict:
-        """Causal op profile."""
-        _not_ported("the causal profiler", "A11")
+        """One-call causal profile of everything recorded so far: span
+        trees (obs/spans.py) folded into the critical-path RTT-attribution
+        report (obs/profile.py).  Requires ``attach_tracer()`` — the
+        flight recorder alone has no per-verb rows.  When this cluster
+        drives a ``FleetEngine`` the wall-clock tick-phase split rides
+        along under ``"tick_phases"``."""
+        from ..obs.profile import critical_path_report
+        from ..obs.spans import spans_from_cluster
+        ss = spans_from_cluster(self)
+        report = critical_path_report(ss, include_bg=include_bg)
+        report["spans"] = ss
+        if self._fleet is not None:
+            report["tick_phases"] = self._fleet.tick_phase_profile()
+        return report
 
     # ---------------------------------------------------------------- health
     def health(self) -> ClusterHealth:

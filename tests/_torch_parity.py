@@ -133,13 +133,41 @@ def counter_signature(fleet):
 
 def signature(cl, fleet=None) -> dict:
     """Every path-independent fact of a run (the fused-tick oracle's
-    signature minus the metrics registry, which the port does not carry
-    yet)."""
+    signature minus the metrics registry, which ``obs_signature``
+    holds)."""
     return {"pool_bytes": pool_bytes(cl),
             "health": health_signature(cl),
             "history": history_signature(cl),
             "counters": counter_signature(fleet),
             "mn_bytes": tuple(int(b) for b in cl.pool.mn_bytes)}
+
+
+def obs_signature(O, cl) -> dict:
+    """A run's observability surface as plain data (``O`` is the
+    package's ``obs`` module): ``json.dumps`` of ``deterministic_view(
+    cl.metrics())`` (the ``hotspot`` block included when enabled), the
+    flight ring's columns and labels; with a verb tracer attached, its
+    ring's columns and labels, the span trees' columns and ``profile()``
+    without its wall-clock ``tick_phases``."""
+    import json
+    out = {"metrics": json.dumps(O.deterministic_view(cl.metrics()),
+                                 sort_keys=True),
+           "flight_labels": cl.obs.labels()}
+    for f, col in cl.obs.flight_events().items():
+        out["flight." + f] = col.tolist()
+    tr = cl.pool._tracer
+    if tr is not None:
+        out["trace_labels"] = tr.labels
+        for f, col in tr.events().items():
+            out["trace." + f] = col.tolist()
+        prof = cl.profile()
+        ss = prof.pop("spans")
+        prof.pop("tick_phases", None)
+        out["profile"] = json.dumps(prof, sort_keys=True)
+        for part in ("spans", "ops"):
+            for f, col in getattr(ss, part).items():
+                out[f"{part}.{f}"] = col.tolist()
+    return out
 
 
 def assert_same_run(ref, port):

@@ -4,7 +4,9 @@ entry, ``fleet_read`` through its public wrapper and the pool's entry,
 ``leaf_probe`` on device and pinned host memory), the staging buffers, a
 fleet tick's rows kept across the next tick, and a seeded fleet run,
 fault run, YCSB-E run (with a client crashed inside a leaf split) and
-serving run on ``cuda`` against the same runs on ``cpu``.  Every test is
+serving run on ``cuda`` against the same runs on ``cpu`` — the fleet and
+fault runs also with their obs surface (metrics, flight ring, hot-key
+monitor, verb ring and profile) held to the CPU's.  Every test is
 marked ``cuda`` and skips without a GPU.
 
 This file imports neither ``jax`` nor the JAX package, so it also runs on
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 import repro_torch.core as T
+import repro_torch.obs as TO
 from repro_torch.core import api as port_api
 from repro_torch.core.shadow import build_shadow
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
@@ -26,9 +29,10 @@ from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  race_lookup_plain)
 from repro_torch.kernels.race_lookup.ops import race_lookup_packed_plain
 
-from _torch_parity import (assert_same_run, attn_bound, port_serve_run,
-                           require_cuda, signature, uniform_attn_inputs,
-                           ycsbe_crash_audit, ycsbe_crash_scenario)
+from _torch_parity import (assert_same_run, attn_bound, obs_signature,
+                           port_serve_run, require_cuda, signature,
+                           uniform_attn_inputs, ycsbe_crash_audit,
+                           ycsbe_crash_scenario)
 
 pytestmark = pytest.mark.cuda
 
@@ -344,10 +348,12 @@ def test_ycsbe_crash_run_on_cuda_matches_cpu():
     assert_same_run(signature(c_cl, c_fleet), gpu)
 
 
-def _fleet_run(device):
+def _fleet_run(device, prep=None):
     n_clients, n_keys = 24, 64
     cl = T.FuseeCluster(T.DMConfig(num_mns=4, replication=2),
                         num_clients=n_clients, seed=3, device=device)
+    if prep is not None:
+        prep(cl)
     fleet = cl.fleet()
     for k in range(n_keys):
         cl.scheduler.submit(k % n_clients, "insert", k, [k, 1 << 63])
@@ -462,9 +468,11 @@ def test_add_mn_on_cuda_matches_cpu():
     assert_same_run(signature(c_cl, c_fleet), signature(cl, fleet))
 
 
-def _fault_run(device):
+def _fault_run(device, prep=None):
     cl = T.FuseeCluster(T.DMConfig(num_mns=5, replication=2), num_clients=6,
                         seed=1, device=device)
+    if prep is not None:
+        prep(cl)
     plan = T.FaultPlan()
     plan.crash_client(2, after_ops=25)
     plan.recover_client(2, reassign_to=3, after_ops=45)
@@ -500,6 +508,58 @@ def test_fault_run_on_cuda_matches_cpu():
     h = gpu.health()
     assert h.mn_recoveries == 1 and h.client_recoveries == 1
     assert_same_run(signature(_fault_run("cpu")), signature(gpu))
+
+
+# ----------------------------------------------------------- obs surface
+_OBS_PREP = {"hub": None, "hotspot": lambda cl: cl.enable_hotspot(),
+             "tracer": lambda cl: cl.attach_tracer()}
+
+
+@pytest.mark.parametrize("mode", sorted(_OBS_PREP))
+@pytest.mark.parametrize("scenario", ["fleet", "fault"])
+def test_obs_surface_on_cuda_matches_cpu(scenario, mode):
+    """The default hub, the hot-key monitor and a recording tracer on the
+    card: deterministic metrics, flight ring, verb ring, span trees and
+    profile equal to the same run's on the CPU."""
+    require_cuda()
+    run = _fleet_run if scenario == "fleet" else _fault_run
+    prep = _OBS_PREP[mode]
+
+    def sig(device):
+        out = run(device, prep)
+        return obs_signature(TO, out[0] if scenario == "fleet" else out)
+
+    gpu = sig("cuda")
+    assert_same_run(sig("cpu"), gpu)
+    if mode == "hotspot":
+        assert '"hotspot"' in gpu["metrics"]
+    if mode == "tracer":
+        assert gpu["trace.seq"]
+
+
+def test_recording_tracer_turns_fusion_off_on_cuda():
+    """While a tracer records, fleet ticks run the per-kind batch verbs
+    it wraps (every READ sweep still one fleet_read launch); paused, the
+    fused tick is back and nothing is recorded."""
+    require_cuda()
+    holder = {}
+
+    def prep(cl):
+        holder["tr"] = cl.attach_tracer()
+
+    cl, fleet = _fleet_run("cuda", prep)
+    tr = holder["tr"]
+    st = fleet.stats()
+    assert st["fallback_ticks"] > 0 and st["fused_ticks"] == 0 and tr.n > 0
+    tr.pause()
+    n, fallback = tr.n, st["fallback_ticks"]
+    before = fleet_read.launches
+    for k in range(8):
+        cl.scheduler.submit(k, "search", k, None)
+    fleet.run()
+    st = fleet.stats()
+    assert st["fused_ticks"] > 0 and st["fallback_ticks"] == fallback
+    assert tr.n == n and fleet_read.launches > before
 
 
 # ------------------------------------------------------- attention kernels

@@ -193,10 +193,16 @@ def test_round_robin_and_replay_match_reference():
 
 # ------------------------------------------------------------ out of slice
 def test_features_outside_the_slice_raise():
-    # SCAN/RANGE are ported (tests/test_torch_ordered.py)
+    # SCAN/RANGE are ported (tests/test_torch_ordered.py), and so are the
+    # obs hub, the verb tracer and the profiler (tests/test_torch_obs.py,
+    # tests/test_torch_profile.py); the sanitizers are not
     cl = T.FuseeCluster(T.DMConfig(), num_clients=2, device="cpu")
-    for call, item in ((cl.attach_tracer, "A12"), (cl.race_findings, "A12"),
-                       (cl.heap_audit, "A12"), (cl.metrics, "A11"),
-                       (cl.profile, "A11")):
-        with pytest.raises(NotImplementedError, match=item):
+    for call in (cl.race_findings, cl.heap_audit):
+        with pytest.raises(NotImplementedError, match=r"A12\.2"):
             call()
+    assert cl.attach_tracer() is cl.attach_tracer()
+    assert cl.profile()["conservation"]["ok"]
+    assert cl.metrics()["counters"]["op.settled"] == 0
+    assert cl.enable_hotspot() is cl.obs.hotspot
+    cl.detach_obs()
+    assert cl.scheduler.obs is None and cl.attach_obs() is cl.obs
