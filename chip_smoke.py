@@ -75,6 +75,16 @@ and then:
    card in the modes of the JAX package's ``obs_overhead`` and
    ``trace_overhead`` benchmarks (``[obs] overhead`` line; reported, not
    gated);
+7d. runs the sanitizers on ``cuda`` and on ``cpu`` and requires equal
+   results (``[sanitize]`` lines): the race detector and heap auditor after
+   ``repro_torch.analysis.races._storm_run`` for churn seeds 0 and 4 (no
+   finding, a clean audit), the ``UNSAFE_ACK_LOST_EMPTY_CAS`` regression
+   (its ``lost_cas_ack`` finding) and its safe twin (no finding), and
+   ROADMAP C1's two crash-during-commit draws through the port's
+   linearizability checker (linearizable).  The heap auditor also runs on
+   the drained clusters of steps 4 and 4b (wall time and counts printed,
+   not gated), and step 4 prints the sha1 of the fleet run's signature
+   beside its ticks, probe hits and launch counts;
 8. holds ``flash_attention`` and ``paged_attention`` against their plain
    versions at the edges (bf16 and f32, GQA groups 1 and 4, ragged, tile-
    edge, split-edge and page-edge lengths; run right after step 2);
@@ -108,6 +118,7 @@ before the last line.  It needs no network and imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -1271,6 +1282,97 @@ def phase_obs_parity():
                 f"events){extra}, {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- sanitizers
+def heap_audit_line(cl, what: str):
+    """The heap auditor on a phase's drained cluster: wall time, error and
+    warning counts.  Printed, not gated (the keydir's acknowledged-insert
+    drops, ROADMAP C, show as lenient keydir warnings)."""
+    t0 = time.perf_counter()
+    rep = cl.heap_audit()
+    dt = time.perf_counter() - t0
+    log(f"[sanitize] heap audit of the {what} cluster: {dt:.3f} s, "
+        f"{len(rep.errors)} errors, {len(rep.warnings)} warnings; "
+        + ", ".join(f"{k} {rep.stats[k]}" for k in (
+            "index_slots_used", "blocks_allocated", "objects_live",
+            "leaks", "lenient") if k in rep.stats)
+        + (f"; first error: {rep.errors[0]}" if rep.errors else ""))
+
+
+def _sanitize_storm(seed: int, device: str) -> dict:
+    from _torch_parity import finding_rows, heap_rows
+    from repro_torch.analysis.races import _storm_run
+    cl, tr = _storm_run(seed, churn=True, device=device)
+    return {"trace": {f: c.tolist() for f, c in tr.events().items()},
+            "findings": finding_rows(cl.race_findings(on_truncated="fail")),
+            "heap": heap_rows(cl.heap_audit())}
+
+
+def _sanitize_lost_write(unsafe: bool, device: str) -> dict:
+    import repro_torch.core as T
+    import repro_torch.core.client as client_mod
+    from _torch_parity import finding_rows, lost_write_run
+    client_mod.UNSAFE_ACK_LOST_EMPTY_CAS = unsafe
+    try:
+        _cl, findings, values = lost_write_run(T, device=device)
+    finally:
+        client_mod.UNSAFE_ACK_LOST_EMPTY_CAS = False
+    return {"findings": finding_rows(findings), "values": values}
+
+
+def _sanitize_c1(seed: int, steps: int, device: str) -> dict:
+    import repro_torch.core as T
+    from repro_torch.core import linearize
+    from _torch_parity import crash_during_commit, linearizes
+    sched, crashed = crash_during_commit(T, seed, steps, device=device)
+    return {"history": [(r.cid, r.op_id, r.kind, r.key, r.value, r.inv_tick,
+                         r.resp_tick, r.result.status, repr(r.result.value))
+                        for r in sched.history if r.result is not None],
+            "linearizable": linearizes(linearize, sched.history, 9, crashed)}
+
+
+def phase_sanitize():
+    """The port's race detector, heap auditor and linearizability checker,
+    each run on ``cuda`` and on ``cpu`` (a mismatch exits non-zero):
+    ``_storm_run`` for churn seeds 0 and 4 (equal verb rings, no race
+    finding, a clean audit); ``UNSAFE_ACK_LOST_EMPTY_CAS``'s regression
+    (the ``lost_cas_ack`` finding present) and its safe twin (no finding);
+    ROADMAP C1's two draws through ``crash_during_commit`` (equal
+    histories, linearizable)."""
+    runs = [(f"storm seed {s} churn", _sanitize_storm, (s,)) for s in (0, 4)]
+    runs += [(f"lost-write regression, UNSAFE_ACK_LOST_EMPTY_CAS={u}",
+              _sanitize_lost_write, (u,)) for u in (True, False)]
+    runs += [(f"C1 draw seed {s} steps {n}", _sanitize_c1, (s, n))
+             for s, n in ((51, 43), (88854, 39))]
+    for name, fn, a in runs:
+        t0 = time.perf_counter()
+        got = fn(*a, device="cuda")
+        t1 = time.perf_counter()
+        want = fn(*a, device="cpu")
+        for k in want:
+            check(got[k] == want[k], f"[sanitize] {name}: cuda and cpu "
+                  f"differ in {k}")
+        if fn is _sanitize_storm:
+            errors, warnings, stats = got["heap"]
+            check(not got["findings"] and not errors,
+                  f"[sanitize] {name}: findings {got['findings']}, heap "
+                  f"errors {errors}")
+            what = (f"{len(got['trace']['seq'])} verb rows, 0 race "
+                    f"findings, heap audit clean ({len(warnings)} warnings,"
+                    f" {stats['index_slots_used']} index slots)")
+        elif fn is _sanitize_lost_write:
+            rules = [f[0] for f in got["findings"]]
+            check(rules == (["lost_cas_ack"] if a[0] else []),
+                  f"[sanitize] {name}: findings {rules}")
+            what = f"findings {rules}, values read back {got['values']}"
+        else:
+            check(got["linearizable"], f"[sanitize] {name}: the port's "
+                  "history does not linearize")
+            what = (f"{len(got['history'])} ops, linearizable under "
+                    "repro_torch.core.linearize")
+        log(f"[sanitize] {name}: cuda and cpu equal; {what}; cuda "
+            f"{t1 - t0:.2f} s, cpu {time.perf_counter() - t1:.2f} s")
+
+
 def perfetto_roundtrip(O, cl, out_dir) -> str:
     """Write the cluster's flight ring with its span trees nested as
     Perfetto JSON, load it back, and check every phase span landed."""
@@ -1921,12 +2023,20 @@ def main(argv=None) -> int:
     check(capture.rl_calls == launches["race_lookup"]
           and capture.fr_calls == launches["fleet_read"],
           "a kernel wrapper was called without launching")
+    st = fleet.stats()
     rows = phase_kernel_timings(cl, capture, launches)
     phase_audit(cl, fleet, acked)
+    log(f"[fleet] signature sha1 "
+        f"{hashlib.sha1(repr(signature(cl, fleet)).encode()).hexdigest()} "
+        f"(after the audit, as tools/time_probes.py takes it); the fleet "
+        f"phase's ticks {st['ticks']}, probe hits {st['probe_hits']}, "
+        f"kernel launches {launches}")
+    heap_audit_line(cl, "paper-scale fleet")
     del cl, fleet, capture
     torch.cuda.empty_cache()
     cl, capture, e_launches = phase_ycsbe(args)
     rows.append(leaf_probe_row(capture, e_launches))
+    heap_audit_line(cl, "YCSB-E")
     del cl, capture
     torch.cuda.empty_cache()
     phase_ycsbe_parity()
@@ -1951,6 +2061,7 @@ def main(argv=None) -> int:
         "signatures equal (pool bytes, health, history, counters, mn_bytes)")
     phase_obs_parity()
     phase_obs_overhead()
+    phase_sanitize()
     capture, serve_launches = phase_serve(args)
     rows += phase_serve_kernels(capture, serve_launches)
     del capture

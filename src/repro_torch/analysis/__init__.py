@@ -1,11 +1,22 @@
-"""Protocol analysis over recorded runs.
+"""Protocol sanitizers over recorded runs.
 
-``trace`` — a ring-buffer recorder for one-sided verbs (READ / WRITE / CAS
-/ FAA and their fleet-mode batch twins), attached to a ``DMPool`` by
-instance-method wrapping so the un-attached pool pays zero cost.  The
-profiler (``obs/spans.py``) folds its rows into per-op span trees.
+* ``trace``  — a ring-buffer recorder for one-sided verbs (READ / WRITE /
+  CAS / FAA and their fleet-mode batch twins), attached to a ``DMPool`` by
+  instance-method wrapping so the un-attached pool pays zero cost; the
+  profiler (``obs/spans.py``) folds its rows into per-op span trees;
+* ``races``  — a vectorized happens-before pass over a recorded trace that
+  flags cross-client conflicts the FUSEE protocol does *not* legalize
+  (stale-epoch mutations, acked lost empty-slot CASes, unguarded
+  write/write conflicts, primary-before-backup clears, torn reads);
+  ``python -m repro_torch.analysis.races --storm-seed N`` runs a seeded
+  fault storm under the tracer, then the race pass and the heap auditor;
+* ``heapcheck`` — a post-drain DM heap / placement-epoch auditor
+  (leaks, double references, BAT ownership, replica divergence, the
+  ordered keydir against the RACE index).
 
-Counterpart of the JAX package's ``analysis`` package; its race detector,
-heap auditor, DPOR explorer and lints are not ported yet (ROADMAP A12.2).
+Counterpart of the JAX package's ``analysis`` package; its DPOR explorer
+and protocol lints are not ported yet (ROADMAP A12.3).
 """
 from .trace import VerbTracer  # noqa: F401
+from .races import Finding, detect, report  # noqa: F401
+from .heapcheck import HeapReport, audit  # noqa: F401

@@ -58,6 +58,49 @@ MAX_OP_RETRIES = 64
 # that a merely slow-scheduled winner almost always commits first.
 MAX_LOSE_POLLS = 48
 
+# TEST-ONLY: when True, op_insert acks OK after LOSING an empty-slot CAS
+# round instead of retrying — the historical lost-write bug (the
+# winner may have inserted a *different* key, so the acknowledged write is
+# nowhere in the index).  Exists solely so regression tests can
+# re-introduce the bug and assert the race detector
+# (repro_torch.analysis.races, rule ``lost_cas_ack``) flags it.
+UNSAFE_ACK_LOST_EMPTY_CAS = False
+
+# TEST-ONLY: when True, the upsert retry path frees the "overwritten" object
+# even when it is the op's OWN object — the churn-cutover acked-write-loss
+# bug (storm seed 7): a retry that crossed a lease-epoch bump re-reads the
+# index, finds its own half-installed slot value (propagated to every
+# replica by the cutover's Alg-3 adopt-backup repair), treats it as the
+# old value, and — since v_old's pointer equals v_new's — the post-ack
+# ``bg:free_old`` phase frees + invalidates the very object the index now
+# references (use-after-free; the acked write is lost when the block is
+# reused).  The fix skips reclamation whenever the displaced slot value
+# points at the op's own object.  Exists solely so the model checker
+# (``analysis/explore.py``, ROADMAP A12.3) and regression tests can
+# re-introduce the bug and assert it is found + minimized.
+UNSAFE_FREE_OWN_ON_RETRY = False
+
+# TEST-ONLY: when True, a SNAPSHOT round that observes the primary moved
+# off ``v_old`` concludes LOSE/FINISH *without first checking whether the
+# primary moved to its OWN ``v_new``* — the storm-seeds-8/15 loser-reset
+# bug.  The master can land a "loser's" value on its behalf: Alg-3
+# recovery (``Master._repair_index_region``) adopts the first alive
+# backup on divergence, and ``Master.fail_query`` adopts a backup
+# majority — both then commit the embedded log of whatever value they
+# installed.  A client whose backup-CAS residue was adopted that way is
+# *the committed winner*, but its LOSE poll (Alg 1 lines 17-22) only
+# tested ``primary != v_old``; under this flag it then resets its own
+# used bit and returns LOSE, leaving the index slot referencing a used=0
+# object (heapcheck: "slot survived a loser reset", CRC/fp failures,
+# key-in-two-slots once the reset object is reclaimed and reused).  The
+# fix treats primary==v_new as MASTER_WIN — every path that can install
+# v_new on our behalf also commits our embedded log, so acking is safe
+# and the used bit must stay set.  Exists solely so the model checker
+# (``analysis/explore.py``, ROADMAP A12.3, scope ``loser_reset``) and
+# regression tests can re-introduce the bug and assert it is found +
+# minimized.
+UNSAFE_LOSE_ON_OWN_COMMIT = False
+
 
 def evaluate_rules_pure(v_list: List[Optional[int]], v_new: int):
     """Pure part of Alg. 2 (no Rule-3 primary check).  ``None`` = FAIL.
@@ -332,16 +375,22 @@ class FuseeClient:
     # ------------------------------------------------- SNAPSHOT WRITE (Alg 1)
     def _snapshot_write(self, region: int, slot_off: int, v_old: int,
                         v_new: int, obj_ptr: int, obj_sc: int, prev_ptr: int,
-                        cause: str = CAUSE_NONE):
+                        mid: int, cause: str = CAUSE_NONE):
         """Returns (status, rule, committed_value_now_in_primary_or_None).
 
         ``region`` is the key's index shard (shard routing); the whole
         round — backup broadcast, rule 3 check, primary CAS, fail path —
         addresses that shard's replicas.  ``obj_ptr/obj_sc/prev_ptr``
         identify this writer's object so the commit (phase 3) and loser
-        used-bit reset target the embedded log.  ``cause`` carries the
-        op-level retry cause into this round's opening phase so the span
-        profiler attributes re-entered SNAPSHOT rounds to what forced them.
+        used-bit reset target the embedded log; ``mid`` is that object's
+        log middle word (next pointer | opcode), which the commit rewrites
+        with the old value's CRC.  It travels with the op, never in a
+        per-client field: a pipelined client has several writes in flight,
+        and a later prepare must not hand an earlier commit its next
+        pointer and opcode (recovery would then redo the wrong op).
+        ``cause`` carries the op-level retry cause into this round's
+        opening phase so the span profiler attributes re-entered SNAPSHOT
+        rounds to what forced them.
         """
         if self.replication_mode == "cr":
             return (yield from self._cr_write(region, slot_off, v_old, v_new,
@@ -361,7 +410,7 @@ class FuseeClient:
                                                    cause=CAUSE_STALE_EPOCH))
             if int(res[0]) == int(v_old):
                 return OK, R1, v_new
-            if int(res[0]) == int(v_new):
+            if int(res[0]) == int(v_new) and not UNSAFE_LOSE_ON_OWN_COMMIT:
                 # the primary already holds OUR value: the master installed
                 # it on our behalf (fail_query arbitration of an earlier
                 # bounced round) and committed our log — we are the winner
@@ -386,7 +435,8 @@ class FuseeClient:
                               label="rule3_check")
             if chk[0] is None:
                 win = FAILV
-            elif int(chk[0][0]) == int(v_new):
+            elif int(chk[0][0]) == int(v_new) \
+                    and not UNSAFE_LOSE_ON_OWN_COMMIT:
                 # the primary moved to OUR value: the master's adopt-backup
                 # repair (Alg-3 recovery or fail_query) installed our
                 # backup-CAS residue and committed our log — concluding
@@ -409,7 +459,7 @@ class FuseeClient:
             # Phase 3: commit the embedded log (write old_value + CRC into our
             # object, all replicas) and, for Rule 2/3, repair divergent
             # backups in the same doorbell batch.
-            verbs = self._commit_log_verbs(obj_ptr, obj_sc, v_old)
+            verbs = self._commit_log_verbs(obj_ptr, obj_sc, v_old, mid)
             nlog = len(verbs)
             if win in (R2, R3):
                 verbs += [Verb("cas", region=region, replica=i + 1,
@@ -478,7 +528,7 @@ class FuseeClient:
                                                    cause=CAUSE_STALE_EPOCH))
             if int(chk[0][0]) != int(v_old):
                 break
-        if int(chk[0][0]) == int(v_new):
+        if int(chk[0][0]) == int(v_new) and not UNSAFE_LOSE_ON_OWN_COMMIT:
             # the slot moved to OUR value while we were polling: an MN
             # crash mid-round let Alg-3 recovery adopt our backup-CAS
             # residue (``_repair_index_region`` takes the first alive
@@ -519,15 +569,15 @@ class FuseeClient:
             # continue to next replica with the same expected value
         return OK, "CR", v_new
 
-    def _commit_log_verbs(self, obj_ptr: int, obj_sc: int, v_old: int) -> List[Verb]:
+    def _commit_log_verbs(self, obj_ptr: int, obj_sc: int, v_old: int,
+                          mid: int) -> List[Verb]:
         region = L.ptr_region(obj_ptr)
         off = L.ptr_offset(obj_ptr)
         n = L.size_class_words(obj_sc)
         crc = L.crc8([int(v_old)])
-        # rewrite w[-3] (old_value) and w[-2] (next|op|crc): we must preserve
-        # next/op which we know locally; reconstructed by the op wrapper.
+        # rewrite w[-3] (old_value) and w[-2] (next|op|crc): next/op come
+        # from ``mid``, the word this op's _prepare_object built
         old_w = int(np.uint64(int(v_old) & 0xFFFF_FFFF_FFFF_FFFF))
-        mid = self._pending_mid  # set by the op before calling snapshot_write
         mid_new = int(L.pack_log_mid(L.log_mid_next(mid), L.log_mid_opcode(mid), crc))
         verbs = [Verb("write", region=region, replica=i, off=off + n - 3,
                       words=[old_w, mid_new])
@@ -792,7 +842,9 @@ class FuseeClient:
 
     # ----------------------------------------------------------- write ops
     def _prepare_object(self, key: int, value, opcode: int):
-        """Allocate + build the object (log entry embedded). No verbs yet."""
+        """Allocate + build the object (log entry embedded). No verbs yet.
+        Returns ``(ptr, sc, prev_ptr, words, mid)``, ``mid`` being the
+        object's log middle word, or None when the heap is FULL."""
         vlen = len(value)
         sc = L.size_class_for(L.obj_words_needed(vlen))
         st = yield from self._ensure_free(sc)
@@ -801,14 +853,13 @@ class FuseeClient:
         ptr, next_ptr, prev_ptr = self._take_obj(sc)
         words, sc2 = L.build_object(key, value, next_ptr, prev_ptr, opcode)
         assert sc2 == sc  # lint: allow-assert (hot path; both derive from vlen)
-        self._pending_mid = words[len(words) - 2]
-        return ptr, sc, prev_ptr, words
+        return ptr, sc, prev_ptr, words, words[len(words) - 2]
 
     def op_insert(self, key: int, value):
         prep = yield from self._prepare_object(key, value, L.OPCODE_INSERT)
         if prep is None:
             return OpResult(FULL)
-        ptr, sc, prev_ptr, words = prep
+        ptr, sc, prev_ptr, words, mid = prep
         fp = L.fingerprint(key)
         region = self._index_region(key)
         v_new = int(L.pack_slot(fp, sc, ptr))
@@ -855,7 +906,8 @@ class FuseeClient:
                     return OpResult(FULL)
                 target, v_old = empty, 0
             status, rule, fin = yield from self._snapshot_write(
-                region, target, v_old, v_new, ptr, sc, prev_ptr, cause=cause)
+                region, target, v_old, v_new, ptr, sc, prev_ptr, mid,
+                cause=cause)
             if status == "RETRY":
                 retries += 1
                 if retries > MAX_OP_RETRIES:
@@ -864,7 +916,8 @@ class FuseeClient:
                 continue
             if status != OK:
                 return OpResult(status, rule=rule)
-            if v_old == 0 and rule in (LOSE, FINISH, "MASTER_LOSE"):
+            if v_old == 0 and rule in (LOSE, FINISH, "MASTER_LOSE") \
+                    and not UNSAFE_ACK_LOST_EMPTY_CAS:
                 # Lost an *empty-slot* race: the winner may have inserted a
                 # DIFFERENT key there, so returning OK would acknowledge a
                 # write that is nowhere in the index.  Retry from the top
@@ -879,7 +932,7 @@ class FuseeClient:
                 continue
             bg = []
             if rule in (R1, R2, R3, "MASTER_WIN", "CR") and v_old != 0 \
-                    and L.slot_ptr(v_old) != ptr:
+                    and (L.slot_ptr(v_old) != ptr or UNSAFE_FREE_OWN_ON_RETRY):
                 # v_old pointing at our OWN object means an epoch-bounced
                 # retry re-observed its half-installed value (the cutover
                 # repair adopts backups): there is no old object to free —
@@ -903,7 +956,7 @@ class FuseeClient:
         prep = yield from self._prepare_object(key, value, L.OPCODE_UPDATE)
         if prep is None:
             return OpResult(FULL)
-        ptr, sc, prev_ptr, words = prep
+        ptr, sc, prev_ptr, words, mid = prep
         fp = L.fingerprint(key)
         region = self._index_region(key)
         v_new = int(L.pack_slot(fp, sc, ptr))
@@ -987,7 +1040,8 @@ class FuseeClient:
                     return OpResult(NOT_FOUND)
                 target, v_old = slot_off2, slot_val2
             status, rule, fin = yield from self._snapshot_write(
-                region, target, v_old, v_new, ptr, sc, prev_ptr, cause=cause)
+                region, target, v_old, v_new, ptr, sc, prev_ptr, mid,
+                cause=cause)
             if status == "RETRY":
                 retries += 1
                 use_cache = False
@@ -999,7 +1053,7 @@ class FuseeClient:
                 return OpResult(status, rule=rule)
             bg = []
             if rule in (R1, R2, R3, "MASTER_WIN", "CR") \
-                    and L.slot_ptr(v_old) != ptr:
+                    and (L.slot_ptr(v_old) != ptr or UNSAFE_FREE_OWN_ON_RETRY):
                 # same own-object guard as op_insert: an epoch-bounced retry
                 # can re-observe its own half-installed value as v_old
                 bg += self._free_obj_verbs(v_old)
@@ -1018,7 +1072,7 @@ class FuseeClient:
         prep = yield from self._prepare_object(key, [], L.OPCODE_DELETE)
         if prep is None:
             return OpResult(FULL)
-        ptr, sc, prev_ptr, words = prep
+        ptr, sc, prev_ptr, words, mid = prep
         region = self._index_region(key)
         retries = 0
         cause = CAUSE_NONE
@@ -1047,7 +1101,7 @@ class FuseeClient:
                     "abort_reset")
                 return OpResult(NOT_FOUND)
             status, rule, fin = yield from self._snapshot_write(
-                region, slot_off2, slot_val2, 0, ptr, sc, prev_ptr,
+                region, slot_off2, slot_val2, 0, ptr, sc, prev_ptr, mid,
                 cause=cause)
             if status == "RETRY":
                 retries += 1

@@ -53,6 +53,7 @@ import torch
 
 from . import codec
 from . import ordered
+from . import sim as sim_module
 from .api import (KVFuture, Op, SimBackend, _fold32, fold32, probe_hit,
                   probe_to_host)
 from .faults import SchedulerStalled
@@ -174,9 +175,12 @@ class FleetEngine:
         for kind, items in by_kind.items():
             self._c_verbs_kind[kind].value += len(items)
             # stale-epoch verbs FAIL without touching the pool (§5.2 —
-            # mirrors sim._exec_verb's guard)
-            live_by_kind[kind] = [it for it in items
-                                  if not (0 <= it[3].epoch != epoch)]
+            # mirrors sim._exec_verb's guard; same test-only bypass flag)
+            if sim_module.UNSAFE_EXEC_STALE_EPOCH:
+                live_by_kind[kind] = items
+            else:
+                live_by_kind[kind] = [it for it in items
+                                      if not (0 <= it[3].epoch != epoch)]
         coord = _pc() - t_coord0
         sweep = scatter = 0.0
         fused_res: Dict[str, list] = {}

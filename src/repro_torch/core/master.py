@@ -32,6 +32,19 @@ from .events import OK, OpResult
 from .heap import (BAT_ORPHAN, INDEX_REGION, META_REGION,
                    META_WORDS_PER_CLIENT, DMPool, get_word, set_word, to_u64)
 
+# TEST-ONLY protocol hole: skip the §5.3 replica convergence of a crashed
+# client's log-entry object before its redo re-installs the index slot.
+# A client that dies mid-write-phase can leave the KV object on a subset
+# of its replicas (the crash drops the remaining QP lanes); without the
+# convergence the redo publishes a slot whose object exists only on the
+# replica the log was read from, and a later MN recovery that loses that
+# replica adopts an all-zero copy — the storm seeds-8/15 heap-audit
+# failure.  The `loser_reset` model-checker scope (`analysis/explore.py`,
+# ROADMAP A12.3) and regression tests re-enable the hole to prove the
+# minimized schedule still reproduces it.
+UNSAFE_REDO_NO_CONVERGE = False
+
+
 @dataclass
 class RecoveryStats:
     reconnect_ms: float = 0.0
@@ -491,7 +504,8 @@ class Master:
         # validated against first — otherwise a later MN recovery can adopt
         # a torn (all-zero) copy and the index ends up referencing garbage
         # (storm seeds 8/15).
-        self._converge_obj_replicas(ptr, sc)
+        if not UNSAFE_REDO_NO_CONVERGE:
+            self._converge_obj_replicas(ptr, sc)
         if not crc_ok:
             # c1 (or a non-returned loser): old value incomplete -> REDO the
             # request on the client's behalf, via the normal SNAPSHOT path.

@@ -50,6 +50,15 @@ from .master import Master
 from .rng import SimRng, as_simrng
 from ..obs.registry import Registry
 
+# TEST-ONLY: when True, the §5.2 stale-lease-epoch guard is bypassed — a
+# verb posted under an expired epoch executes against the *new* placement
+# instead of bouncing (the historical stale-epoch redirection bug).
+# Exists solely so regression tests can re-introduce the bug and assert
+# the race detector (repro_torch.analysis.races) flags it.  Never enable
+# outside tests; fleet.py honors the same flag.
+UNSAFE_EXEC_STALE_EPOCH = False
+
+
 def _canon_bytes(v, out: list):
     """Flatten a delivered value (phase results / master answers) into a
     canonical byte stream: type-tagged so e.g. 0 and [0] never collide."""
@@ -533,7 +542,7 @@ class Scheduler:
 
     def _exec_verb(self, v: Verb, cid: int):
         p = self.pool
-        if 0 <= v.epoch != p.epoch:
+        if 0 <= v.epoch != p.epoch and not UNSAFE_EXEC_STALE_EPOCH:
             return None   # posted under an expired lease epoch: MR invalid
         if v.kind == "read":
             return p.read(v.region, v.replica, v.off, v.n)

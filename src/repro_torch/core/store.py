@@ -29,9 +29,9 @@ Concurrency/crash tests that need verb-level schedules still drive
 Counterpart of the JAX package's ``core/store.py``.  ``FuseeCluster(...,
 device=None)`` keeps the whole region slab on ``"cuda"`` and raises where
 no GPU is present; pass ``device="cpu"`` to run on the CPU.  The obs hub
-and the verb tracer are host numpy and read no device tensor.  Not ported
-yet (each raises ``NotImplementedError`` naming ROADMAP A12.2): the race
-detector and the heap auditor.
+and the verb tracer are host numpy and read no device tensor;
+``race_findings()`` runs on the tracer's host ring, and ``heap_audit()``
+reads each region replica it needs with one host copy.
 """
 from __future__ import annotations
 
@@ -50,11 +50,6 @@ from .rng import SimRng
 from .sim import Choice, Scheduler, SimTrace
 from ..configs.fusee_paper import FuseePaperConfig
 from ..obs.flight import ClusterObs
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 class FuseeCluster:
@@ -325,12 +320,33 @@ class FuseeCluster:
         return VerbTracer(capacity=capacity).attach(self.pool)
 
     def race_findings(self, rules=None, on_truncated: str = "warn"):
-        """Happens-before race pass over traced verbs."""
-        _not_ported("the race detector", "A12.2")
+        """Happens-before race pass over the attached tracer's events (see
+        ``repro_torch.analysis.races``).  Requires ``attach_tracer`` first.
+        ``on_truncated`` governs saturated-ring behavior: "warn" (default)
+        emits ``TruncatedTraceWarning``, "fail" raises, "ignore" is
+        silent — a wrapped ring can hide both races and their guards."""
+        from ..analysis import races             # local: analysis is opt-in
+        if self.pool._tracer is None:
+            raise ValueError(
+                "no tracer attached — call attach_tracer() before running "
+                "the race detector")
+        findings = races.detect(self.pool._tracer, scheduler=self.scheduler,
+                                rules=rules, on_truncated=on_truncated)
+        obs = self.scheduler.obs
+        if obs is not None and findings:
+            obs.dump("race_finding")
+        return findings
 
     def heap_audit(self):
-        """Post-drain DM heap/epoch sanitizer."""
-        _not_ported("the heap auditor", "A12.2")
+        """Post-drain DM heap/epoch sanitizer (``repro_torch.analysis.heapcheck``):
+        index→object reachability, leak/double-free/use-after-free checks,
+        placement-ring epoch consistency.  Call after ``drain()``."""
+        from ..analysis import heapcheck         # local: analysis is opt-in
+        report = heapcheck.audit(self)
+        obs = self.scheduler.obs
+        if obs is not None and not report.ok:
+            obs.dump("heap_audit")
+        return report
 
     # --------------------------------------------------------- observability
     def attach_obs(self) -> ClusterObs:

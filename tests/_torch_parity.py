@@ -7,7 +7,43 @@ packages only as numpy arrays and plain dicts.
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture
+def ref_c1_fixed(monkeypatch):
+    """The JAX package's ``FuseeClient`` with the port's fix of ROADMAP C1,
+    for the test that uses this fixture only (``monkeypatch`` restores both
+    methods at teardown).
+
+    The reference keeps an object's log middle word (next pointer, opcode)
+    in one per-client field, ``_pending_mid``, set by ``_prepare_object``
+    and read by ``_commit_log_verbs``; with two writes in flight on a
+    client, a later prepare overwrites it before an earlier op commits.
+    The port carries the word with its op.  Here the reference carries it
+    per object pointer (the ops in flight on one client hold distinct
+    objects), so every byte, history and audit comparison stays strict and
+    compares the same protocol.  A module that compares the two packages on
+    a run with more than one op in flight applies it to every test:
+    ``pytestmark = pytest.mark.usefixtures("ref_c1_fixed")``."""
+    from repro.core.client import FuseeClient
+    prepare, commit = FuseeClient._prepare_object, \
+        FuseeClient._commit_log_verbs
+
+    def _prepare_object(self, key, value, opcode):
+        prep = yield from prepare(self, key, value, opcode)
+        if prep is not None:
+            self.__dict__.setdefault("_c1_mids", {})[prep[0]] = \
+                self._pending_mid
+        return prep
+
+    def _commit_log_verbs(self, obj_ptr, obj_sc, v_old):
+        self._pending_mid = self._c1_mids[obj_ptr]
+        return commit(self, obj_ptr, obj_sc, v_old)
+
+    monkeypatch.setattr(FuseeClient, "_prepare_object", _prepare_object)
+    monkeypatch.setattr(FuseeClient, "_commit_log_verbs", _commit_log_verbs)
 
 
 def require_cuda():
@@ -173,6 +209,109 @@ def obs_signature(O, cl) -> dict:
 def assert_same_run(ref, port):
     for k in ref:
         assert ref[k] == port[k], f"port/reference divergence in {k}"
+
+
+# ------------------------------------------------------------ sanitizers
+def step_cluster(M, num_clients=4, r=3, num_mns=4, **pool_kw):
+    """tests/test_property.py's step-mode harness on either package's
+    ``core`` (``M``): a pool (``pool_kw`` goes to ``DMPool``, e.g.
+    ``device=``), its master, ``num_clients`` clients and a scheduler."""
+    pool = M.DMPool(M.DMConfig(num_mns=num_mns, replication=r),
+                    num_clients=num_clients, **pool_kw)
+    master = M.Master(pool)
+    clients = [M.FuseeClient(i, pool) for i in range(num_clients)]
+    sched = M.Scheduler(pool, master)
+    for c in clients:
+        sched.add_client(c)
+    return pool, master, clients, sched
+
+
+def crash_during_commit(M, seed, steps, **pool_kw):
+    """tests/test_property.py::test_crash_during_commit_history_linearizable
+    at one draw: client 1 pipelines two writes of key 9 (the second a
+    DELETE when ``seed % 3 == 0``), client 2 an update and a search; after
+    ``steps`` random verb-boundary steps client 1 crashes, the master
+    recovers it (§5.3) onto client 2, the survivors finish and a final
+    SEARCH reads the key.  Returns the scheduler and the CRASHED records of
+    key 9.  ``chip_smoke.py`` runs it on ``cuda`` and on ``cpu``."""
+    rng = np.random.default_rng(seed)
+    pool, master, clients, sched = step_cluster(M, num_clients=3, **pool_kw)
+    rec0 = sched.submit(clients[0].cid, "insert", 9, [1])
+    sched.run_round_robin()
+    assert rec0.result.status == "OK"
+    sched.submit(clients[1].cid, "update", 9, [20])
+    sched.submit(clients[1].cid, "delete" if seed % 3 == 0 else "update",
+                 9, None if seed % 3 == 0 else [21])
+    sched.submit(clients[2].cid, "update", 9, [30])
+    sched.submit(clients[2].cid, "search", 9)
+    for _ in range(steps):
+        cids = sched.eligible_cids()
+        if not cids:
+            break
+        sched.step(cids[int(rng.integers(len(cids)))],
+                   pick=int(rng.integers(4)))
+    sched.crash_client(1)
+    master.recover_client(1, reassign_to=clients[2])
+    sched.run_random(rng=rng)
+    sched.submit(clients[2].cid, "search", 9)
+    sched.run_round_robin()
+    crashed = [r for r in sched.history
+               if r.key == 9 and r.result is not None
+               and r.result.status == "CRASHED"]
+    return sched, crashed
+
+
+def linearizes(lin, records, key, crashed=()) -> bool:
+    """Whether ``records``' history of ``key`` linearizes under checker
+    module ``lin`` (either package's ``core.linearize``).  With ``crashed``
+    records: true iff SOME subset of the crashed writes can be taken as
+    applied — a never-responding op may linearize anywhere after its
+    invocation (the CRASHED contract: at most once, never partially)."""
+    import itertools
+    hops = lin.records_to_hops(records, key)
+    writes = [r for r in crashed if r.kind in ("insert", "update", "delete")]
+    for n in range(len(writes) + 1):
+        for sub in itertools.combinations(writes, n):
+            extra = [lin.HOp(op_id=r.op_id, kind=r.kind, inv=r.inv_tick,
+                             resp=10 ** 9,
+                             wrote=tuple(r.value)
+                             if r.value is not None else None,
+                             read=None, status="OK")
+                     for r in sub]
+            if lin.check_linearizable(hops + extra, initial=None):
+                return True
+    return False
+
+
+def lost_write_run(M, **kw):
+    """tests/test_analysis.py::test_regression_lost_write_cas_race's run on
+    either package (``kw`` goes to ``FuseeCluster``): two clients insert
+    different keys sharing a primary bucket, under a verb tracer.  Returns
+    the cluster, its race findings and both keys' values read back."""
+    cfg = M.DMConfig()
+    k1 = 1001
+    b1 = M.race.bucket_pair(k1, cfg.index_buckets)[0]
+    k2 = next(k for k in range(2000, 100000)
+              if M.race.bucket_pair(k, cfg.index_buckets)[0] == b1)
+    cl = M.FuseeCluster(num_clients=2, seed=3, **kw)
+    cl.attach_tracer()
+    s0, s1 = cl.store(0, max_inflight=0), cl.store(1, max_inflight=0)
+    f1 = s0.submit(M.Op.put(k1, [11]))
+    f2 = s1.submit(M.Op.put(k2, [22]))
+    cl.drain()
+    assert f1.result().status == "OK" and f2.result().status == "OK"
+    return cl, cl.race_findings(), (s0.get(k1), s1.get(k2))
+
+
+def finding_rows(findings) -> list:
+    """Race findings as plain tuples (every field)."""
+    return [(f.rule, f.region, f.replica, f.off, f.cids, f.verbs, f.op_ids,
+             f.seqs, f.detail) for f in findings]
+
+
+def heap_rows(rep) -> tuple:
+    """A heap audit's errors, warnings and stats."""
+    return rep.errors, rep.warnings, rep.stats
 
 
 # ------------------------------------------------------------ attention

@@ -19,7 +19,11 @@ import repro.core as R
 import repro_torch.core as T
 from benchmarks.common import YCSB, fleet_dmconfig
 
-from _torch_parity import assert_same_run, port_config, signature
+from _torch_parity import assert_same_run, port_config, ref_c1_fixed, signature
+
+# the reference client carries ROADMAP C1's fix, as the port does
+pytestmark = pytest.mark.usefixtures("ref_c1_fixed")
+
 
 
 def _cfg(M, ref_cfg):
@@ -262,3 +266,92 @@ def test_fleet_engine_rejects_scans():
     assert got[2][0] == [(k, [k, 1 << 63]) for k in range(22, 31)]
     assert_same_run(signature(*ref), signature(cl, fleet))
     assert fleet.stats()["scan_locate_invocations"] == 1
+
+
+# ------------------------------------------------ elastic scale-in (A7.1)
+def _elastic(M, seed, n_keys, **cfg_kw):
+    """tests/test_elastic.py's cluster: 2 clients, ``n_keys`` keys put
+    through client 0's store."""
+    base = dict(num_mns=2, replication=2, region_words=1 << 15,
+                regions_per_mn=8)
+    base.update(cfg_kw)
+    kw = {"device": "cpu"} if M is T else {}
+    cl = M.FuseeCluster(M.DMConfig(**base), num_clients=2, seed=seed, **kw)
+    kv = cl.store(0)
+    for k in range(n_keys):
+        assert kv.put(k, [k * 2]).status == "OK"
+    return cl
+
+
+def _read_back(cl, n_keys):
+    return [cl.store(1).get(k) for k in range(n_keys)]
+
+
+def test_remove_mn_drains_and_retires():
+    def run(M):
+        cl = _elastic(M, 2, 64, num_mns=4, index_shards=4)
+        cl.remove_mn(1)
+        mn = cl.pool.mns[1]
+        assert mn.retired and not mn.regions
+        assert 1 not in cl.pool.directory.members
+        assert all(1 not in reps for reps in cl.pool.placement.values())
+        h = cl.health()
+        assert h.retired_mns == 1 and h.migrating_regions == 0
+        return _read_back(cl, 64), signature(cl)
+
+    (want, ref), (got, port) = run(R), run(T)
+    assert got == want == [[k * 2] for k in range(64)]
+    assert_same_run(ref, port)
+
+
+def test_remove_mn_while_migrations_headed_for_it():
+    """remove_mn of a node that in-flight migrations (from a just-issued
+    add_mn) still target aborts and re-plans them, on both packages."""
+    def run(M):
+        cl = _elastic(M, 4, 48, num_mns=3, index_shards=8)
+        mid = cl.add_mn(wait=False)
+        assert cl.migrator.active
+        cl.remove_mn(mid, wait=False)
+        cl.migrator.drive(max_ticks=200_000)
+        assert cl.pool.mns[mid].retired
+        assert all(mid not in reps for reps in cl.pool.placement.values())
+        return _read_back(cl, 48), signature(cl)
+
+    (want, ref), (got, port) = run(R), run(T)
+    assert got == want == [[k * 2] for k in range(48)]
+    assert_same_run(ref, port)
+
+
+def test_remove_mn_below_replication_raises_typed():
+    from repro_torch.core.faults import InsufficientReplicas
+
+    def run(M, exc):
+        cl = _elastic(M, 0, 8)
+        with pytest.raises(exc):
+            cl.remove_mn(0)
+        assert cl.pool.directory.members == [0, 1]
+        assert not cl.pool.mns[0].retired
+        return _read_back(cl, 8), signature(cl)
+
+    (want, ref), (got, port) = (run(R, R.InsufficientReplicas),
+                                run(T, InsufficientReplicas))
+    assert got == want
+    assert_same_run(ref, port)
+
+
+def test_add_mn_then_rebalance_matches_reference():
+    """Scale out by one MN, then re-place the index shards on the new ring:
+    the migrations started, the values read back and the run's signature
+    equal the reference's."""
+    def run(M):
+        cl = _elastic(M, 6, 64, num_mns=3, index_shards=8)
+        mid = cl.add_mn()
+        assert not cl.migrator.busy
+        n = cl.rebalance()
+        assert not cl.migrator.busy
+        assert len(cl.pool.mns) == 4 and mid in cl.pool.directory.members
+        return n, _read_back(cl, 64), signature(cl)
+
+    (n_ref, want, ref), (n, got, port) = run(R), run(T)
+    assert n == n_ref and got == want == [[k * 2] for k in range(64)]
+    assert_same_run(ref, port)

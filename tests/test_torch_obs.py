@@ -23,7 +23,12 @@ import repro_torch.core as T
 import repro_torch.obs as TO
 from benchmarks.common import YCSB, fleet_dmconfig
 
-from _torch_parity import assert_same_run, obs_signature, port_config
+from _torch_parity import (assert_same_run, obs_signature, port_config,
+                          ref_c1_fixed)
+
+# the reference client carries ROADMAP C1's fix, as the port does
+pytestmark = pytest.mark.usefixtures("ref_c1_fixed")
+
 
 PKGS = ((R, RO), (T, TO))
 

@@ -34,7 +34,11 @@ from repro_torch.core import ordered as TO
 from repro_torch.core.fences import FenceCache
 from repro_torch.kernels import leaf_probe, leaf_probe_plain, reset_launches
 
-from _torch_parity import assert_same_run, signature
+from _torch_parity import assert_same_run, ref_c1_fixed, signature
+
+# the reference client carries ROADMAP C1's fix, as the port does
+pytestmark = pytest.mark.usefixtures("ref_c1_fixed")
+
 
 M64 = (1 << 64) - 1
 CFG = dict(num_mns=4, replication=3, ordered_index=True,

@@ -28,7 +28,11 @@ from repro_torch.core import layout as port_layout
 from repro_torch.core import race as port_race
 from repro_torch.core import ring as port_ring
 
-from _torch_parity import assert_same_run, signature
+from _torch_parity import assert_same_run, ref_c1_fixed, signature
+
+# the reference client carries ROADMAP C1's fix, as the port does
+pytestmark = pytest.mark.usefixtures("ref_c1_fixed")
+
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -194,12 +198,42 @@ def test_round_robin_and_replay_match_reference():
 # ------------------------------------------------------------ out of slice
 def test_features_outside_the_slice_raise():
     # SCAN/RANGE are ported (tests/test_torch_ordered.py), and so are the
-    # obs hub, the verb tracer and the profiler (tests/test_torch_obs.py,
-    # tests/test_torch_profile.py); the sanitizers are not
+    # obs hub, the verb tracer, the profiler (tests/test_torch_obs.py,
+    # tests/test_torch_profile.py) and the sanitizers
+    # (tests/test_torch_analysis.py); the DPOR explorer and the protocol
+    # lints are not (ROADMAP A12.3), nor are models outside the dense family
+    import dataclasses
+    import importlib
+    from repro_torch.configs import base as PC
+    from repro_torch.models import Model
+
+    def run(M, **kw):
+        cl = M.FuseeCluster(M.DMConfig(), num_clients=2, seed=5, **kw)
+        with pytest.raises(ValueError, match="no tracer attached"):
+            cl.race_findings()
+        tr = cl.attach_tracer()
+        assert cl.attach_tracer() is tr
+        stores = [cl.store(c, max_inflight=0) for c in range(2)]
+        futs = [stores[k % 2].submit(M.Op.put(k, [k, 1 << 63]))
+                for k in range(12)]
+        cl.drain()
+        assert all(f.result().status == "OK" for f in futs)
+        findings = cl.race_findings(on_truncated="fail")
+        rep = cl.heap_audit()
+        assert findings == [] and rep.ok, str(rep)
+        return [str(f) for f in findings], (rep.errors, rep.warnings,
+                                            rep.stats), signature(cl)
+    ref, port = run(R), run(T, device="cpu")
+    assert port[:2] == ref[:2]
+    assert port[2]["history"] == ref[2]["history"]
+    assert port[1][2]["index_slots_used"] == 12
+    for name in ("explore", "lint"):
+        with pytest.raises(ModuleNotFoundError):
+            importlib.import_module(f"repro_torch.analysis.{name}")
+    ssm = dataclasses.replace(PC.reduced(PC.get("llama3-8b")), family="ssm")
+    with pytest.raises(NotImplementedError, match="A9"):
+        Model(ssm, device="cpu")
     cl = T.FuseeCluster(T.DMConfig(), num_clients=2, device="cpu")
-    for call in (cl.race_findings, cl.heap_audit):
-        with pytest.raises(NotImplementedError, match=r"A12\.2"):
-            call()
     assert cl.attach_tracer() is cl.attach_tracer()
     assert cl.profile()["conservation"]["ok"]
     assert cl.metrics()["counters"]["op.settled"] == 0
