@@ -85,6 +85,15 @@ and then:
    the drained clusters of steps 4 and 4b (wall time and counts printed,
    not gated), and step 4 prints the sha1 of the fleet run's signature
    beside its ticks, probe hits and launch counts;
+7e. runs the port's DPOR model checker on ``cuda`` and on ``cpu`` and
+   requires equal results (``[explore]`` lines, with each device's seconds
+   and a total): the ``no_fault``, ``crash`` and ``insert_race`` scopes at
+   full depth and bounded prefixes of ``stale_epoch`` (300 states),
+   ``cutover`` (150) and ``loser_reset`` (300), all without a violation;
+   the ``lost_ack``, ``stale_epoch`` (2000 states) and ``loser_reset``
+   rediscoveries with their ``UNSAFE_*`` flag, each minimized to at most
+   25 choices, saved as an ``.npz`` under ``build/explore/`` and replayed
+   on the card;
 8. holds ``flash_attention`` and ``paged_attention`` against their plain
    versions at the edges (bf16 and f32, GQA groups 1 and 4, ragged, tile-
    edge, split-edge and page-edge lengths; run right after step 2);
@@ -1373,6 +1382,78 @@ def phase_sanitize():
             f"{t1 - t0:.2f} s, cpu {time.perf_counter() - t1:.2f} s")
 
 
+# (label, scope, flag re-enabled or None, max_states, cut note)
+EXPLORE_ITEMS = (
+    [("clean", s, None, 200_000, "full depth")
+     for s in ("no_fault", "crash", "insert_race")]
+    + [("bounded", s, None, n, f"max_states {n}")
+       for s, n in (("stale_epoch", 300), ("cutover", 150),
+                    ("loser_reset", 300))]
+    + [("rediscovery", "lost_ack", "client.UNSAFE_ACK_LOST_EMPTY_CAS",
+        200_000, "full depth"),
+       ("rediscovery", "stale_epoch", "sim.UNSAFE_EXEC_STALE_EPOCH", 2000,
+        "max_states 2000"),
+       ("rediscovery", "loser_reset", "master.UNSAFE_REDO_NO_CONVERGE",
+        200_000, "cold start, full depth")])
+
+
+def phase_explore():
+    """The port's DPOR model checker (``repro_torch.analysis.explore``),
+    each item on ``cuda`` and on ``cpu`` (a mismatch exits non-zero):
+    the clean scopes at full depth and the bounded prefixes must find no
+    violation; the three rediscoveries must find one, minimize it to at
+    most 25 choices, save it as an ``.npz`` on the card and reproduce it
+    on the card from that file.  States, executions, visit digest,
+    ``complete``, violation kinds and minimized schedules must be equal
+    on both devices.  The seed-7 ``cutover`` cold start does not run here
+    (several minutes on the CPU alone)."""
+    from _torch_parity import explore_signature
+    from repro_torch.analysis import explore as E
+    out_dir = ROOT / "build" / "explore"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    totals = {"cuda": 0.0, "cpu": 0.0}
+    for label, scope, flag, bound, cut in EXPLORE_ITEMS:
+        flags = {flag: True} if flag else None
+        got, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res = E.explore(scope, flags=flags, max_states=bound,
+                            minimize=flag is not None, device=dev)
+            secs[dev] = time.perf_counter() - t0
+            totals[dev] += secs[dev]
+            got[dev] = (res, explore_signature(res))
+        res, sig = got["cuda"]
+        name = f"{label} {scope}" + (f" under {flag}" if flag else "")
+        compare(sig, got["cpu"][1], f"[explore] {name}")
+        what = (f"{sig['states']} states, {sig['executions']} executions, "
+                f"digest {sig['visit_digest']}, "
+                + ("complete" if sig["complete"] else "budget-capped"))
+        if flag is None:
+            check(not sig["violations"], f"[explore] {name}: violations "
+                  f"{sig['violations']}")
+            check(sig["complete"] or label == "bounded",
+                  f"[explore] {name}: budget-capped at full depth")
+            what += ", no violation"
+        else:
+            check(sig["violations"], f"[explore] {name}: no violation found")
+            kind, minimized = sig["violations"][0]
+            check(0 < len(minimized) <= 25, f"[explore] {name}: minimized "
+                  f"to {len(minimized)} choices")
+            path = str(out_dir / f"{scope}.npz")
+            E.save_counterexample(path, scope, res.violations[0], flags)
+            lines = []
+            check(E.replay(path, out=lines.append, device="cuda")
+                  and any(f"VIOLATION {kind}" in ln for ln in lines),
+                  f"[explore] {name}: the saved .npz did not reproduce "
+                  f"{kind} on the card")
+            what += (f"; {kind} minimized to {len(minimized)} choices, "
+                     "saved and replayed on the card")
+        log(f"[explore] {name} ({cut}): cuda and cpu equal; {what}; cuda "
+            f"{secs['cuda']:.2f} s, cpu {secs['cpu']:.2f} s")
+    log(f"[explore] total: {len(EXPLORE_ITEMS)} items, cuda "
+        f"{totals['cuda']:.2f} s, cpu {totals['cpu']:.2f} s")
+
+
 def perfetto_roundtrip(O, cl, out_dir) -> str:
     """Write the cluster's flight ring with its span trees nested as
     Perfetto JSON, load it back, and check every phase span landed."""
@@ -2062,6 +2143,7 @@ def main(argv=None) -> int:
     phase_obs_parity()
     phase_obs_overhead()
     phase_sanitize()
+    phase_explore()
     capture, serve_launches = phase_serve(args)
     rows += phase_serve_kernels(capture, serve_launches)
     del capture

@@ -607,7 +607,7 @@ class DMPool:
         plan = self._plan_reads(_putter(host), regions, replicas, offs, ns)
         n = _words(plan, reads=True)
         self._sweep_reads(plan, self._h2d(host), self._results(n))
-        return self._unpack_reads(plan, self._fetch(n), 0)[0]
+        return self._fused_unpack_reads(plan, self._fetch(n), 0)[0]
 
     def write_batch(self, regions, replicas, offs, words_list) -> list:
         """Vectorized WRITE of per-verb word lists.  Overlapping writes
@@ -782,7 +782,7 @@ class DMPool:
             r_plan = self._plan_reads(put, *reads)
         w_out: list = []
         if writes:
-            w_out, w_plan = self._plan_writes(put, *writes)
+            w_out, w_plan = self._fused_plan_writes(put, *writes)
         if cass:
             c_plan = self._plan_atomic(put, cass[0], cass[1], cass[2],
                                        (cass[3], cass[4]))
@@ -800,14 +800,15 @@ class DMPool:
         if w_plan is not None:
             s_addr, s_vals = w_plan
             flat[dbuf[s_addr]] = dbuf[s_vals]
-        c_res = self._sweep_atomic(c_plan, dbuf, stage, n_r, cas=True)
-        f_res = self._sweep_atomic(f_plan, dbuf, stage, n_r + n_c, cas=False)
+        c_res = self._fused_sweep_atomic(c_plan, dbuf, stage, n_r, cas=True)
+        f_res = self._fused_sweep_atomic(f_plan, dbuf, stage, n_r + n_c,
+                                         cas=False)
         res = self._fetch(used)
 
         # ---- split the results on the host ---------------------------------
-        r_out, pos = self._unpack_reads(r_plan, res, 0)
-        c_out, pos = self._unpack_atomic(c_plan, c_res, res, pos)
-        f_out, pos = self._unpack_atomic(f_plan, f_res, res, pos)
+        r_out, pos = self._fused_unpack_reads(r_plan, res, 0)
+        c_out, pos = self._fused_unpack_atomic(c_plan, c_res, res, pos)
+        f_out, pos = self._fused_unpack_atomic(f_plan, f_res, res, pos)
         return r_out, w_out, c_out, f_out
 
     def _results(self, n: int) -> torch.Tensor:
@@ -856,7 +857,7 @@ class DMPool:
                         stage, 0, self.device)
 
     @staticmethod
-    def _unpack_reads(plan, res, pos):
+    def _fused_unpack_reads(plan, res, pos):
         """Split the flat gathered words into per-verb rows (views of
         ``res``), exactly as the reference's read sweep does."""
         if plan is None:
@@ -872,8 +873,8 @@ class DMPool:
             out[i] = rows[lo:hi]
         return out, pos + int(start[-1])
 
-    def _plan_writes(self, put, regions, replicas, offs, words_list,
-                     ns=None, vals=None):
+    def _fused_plan_writes(self, put, regions, replicas, offs, words_list,
+                           ns=None, vals=None):
         regions = np.asarray(regions, np.int64)
         replicas = np.asarray(replicas, np.int64)
         offs = np.asarray(offs, np.int64)
@@ -916,7 +917,7 @@ class DMPool:
             key = (regions[sel] << 36) | (replicas[sel] << 32) | ln
             verb_order = np.argsort(key, kind="stable")
             word_order = np.concatenate(
-                [np.arange(s, e) for s, e in  # lint: allow-fused-loop (overlapping writes are rare; one range per colliding verb)
+                [np.arange(s, e) for s, e in
                  zip((ends - ln)[verb_order].tolist(),
                      ends[verb_order].tolist())])
             addrs, bits = _last_wins(addrs[word_order], bits[word_order])
@@ -938,7 +939,7 @@ class DMPool:
         slices = [put(addr[vsel])] + [put(b[vsel]) for b in bits]
         return (len(regions), (vsel, dsel, addr, bits, slices))
 
-    def _sweep_atomic(self, plan, dbuf, stage, off, *, cas: bool):
+    def _fused_sweep_atomic(self, plan, dbuf, stage, off, *, cas: bool):
         """Device part of the CAS (``cas``) or FAA sweep: one vectorized
         pass over words touched once, their old values gathered into
         ``stage`` at ``off``; words several verbs touch are serialized in
@@ -977,7 +978,7 @@ class DMPool:
         return res
 
     @staticmethod
-    def _unpack_atomic(plan, dup_res, res, pos):
+    def _fused_unpack_atomic(plan, dup_res, res, pos):
         if plan is None:
             return [], pos
         n_verbs, body = plan

@@ -282,6 +282,23 @@ class FuseeCluster:
             self._fleet = FleetEngine(self.scheduler)
         return self._fleet
 
+    def arm_migration_event(self, name: str = "migrate"):
+        """Expose live-migration progress as an enumerable choice point:
+        while any migration is active, ``Choice('event', name=...)`` is
+        enabled and each firing advances the migration engine one boundary
+        (one bulk-copy chunk, or the master-arbitrated cutover commit).
+        With this armed, a checker controls exactly when the cutover's
+        epoch bump lands relative to every client verb."""
+        # detach the auto tick hook: begin_tick runs inside every fired
+        # choice, so leaving it hooked would advance the migration (and
+        # land the cutover) implicitly, outside the enumerated schedule
+        self.migrator.manual = True
+        self.scheduler.remove_tick_hook(self.migrator._tick_hook)
+        self.migrator._hooked = False
+        self.scheduler.arm_event(
+            name, lambda s: self.migrator.tick(),
+            enabled=lambda s: bool(self.migrator.active), once=False)
+
     # ------------------------------------------------------- choice points
     def choices(self):
         """The enabled scheduler transitions at the current state — the

@@ -206,6 +206,28 @@ def obs_signature(O, cl) -> dict:
     return out
 
 
+def choice_rows(choices) -> tuple:
+    """Scheduler choices as plain tuples (each package has its own
+    ``Choice`` class, and dataclasses of two classes never compare
+    equal)."""
+    return tuple((c.kind, c.cid, c.mn, c.name) for c in choices)
+
+
+def explore_signature(res) -> dict:
+    """An ``ExploreResult`` without its wall time: every count, the visit
+    digest, ``complete`` and each violation's kind with its minimized (or,
+    if not minimized, full) schedule, and the details."""
+    return {"states": res.states, "executions": res.executions,
+            "transitions": res.transitions,
+            "replay_fires": res.replay_fires, "dedup_cuts": res.dedup_cuts,
+            "sleep_blocks": res.sleep_blocks, "complete": res.complete,
+            "visit_digest": res.visit_digest,
+            "violations": [(v.kind, choice_rows(
+                v.minimized if v.minimized is not None else v.schedule))
+                for v in res.violations],
+            "details": [v.detail for v in res.violations]}
+
+
 def assert_same_run(ref, port):
     for k in ref:
         assert ref[k] == port[k], f"port/reference divergence in {k}"

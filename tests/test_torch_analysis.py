@@ -1,6 +1,6 @@
 """The port's sanitizers against the JAX package's, on the CPU: every case
-of tests/test_analysis.py but its nine ``test_lint_*`` cases (the protocol
-lints are not ported yet, ROADMAP A12.3).
+of tests/test_analysis.py but its nine ``test_lint_*`` cases, which
+tests/test_torch_lint.py holds.
 
 Each case runs on both packages and compares what the sanitizers say: the
 race detector's findings (rule, region, replica, word, cids, verbs, op
