@@ -115,9 +115,33 @@ and then:
 10. runs the engine scenario of ``tests/test_serving.py`` at reduced size in
    f32 (as defined in ``tests/_torch_parity.py``) on ``cuda`` and on
    ``cpu`` with the same weights and requires equal tokens, prefix hits,
-   per-key SEARCH results and prefix listings.
+   per-key SEARCH results and prefix listings;
+11. ``[models]``: serves smollm-360m at full width and depth (head dim 64,
+   15 heads over 5 kv heads) with step 9's traffic and checks (tied
+   parameter count, one ``flash_attention`` launch per layer per prefill
+   and one ``paged_attention`` launch per layer per decode step, second-
+   wave prefix hits); runs qwen3-32b, chameleon-34b (family ``vlm``) and
+   mistral-large-123b (G 12) at full width with ``MODELS_CUT`` layers
+   through one 4 x 1152 prefill and 4 decode steps of ``Model``; holds both
+   attention kernels against their plain versions on each run's largest
+   inputs and times them beside SDPA; and runs each of the four configs at
+   reduced size in f32 on ``cuda`` and on ``cpu`` (equal prefill logits
+   and decode tokens);
+12. ``[train]``: trains smollm-360m at full width and depth for 30 steps
+   (bf16, AdamW, remat per layer, batch 8 x seq 1024; the mean loss of the
+   last 5 steps at least 0.2 below the first 5's; ms per step, tokens/s,
+   peak memory, one profiled step), 3 steps with int8 moments, a gradient
+   check at full width and depth in f32 (autograd against a difference
+   quotient of the loss along a random direction in every leaf of four
+   layers, the final norm and the used embedding rows), and at reduced
+   size in f32 on the card one step with 1 and with 4 microbatches, each
+   against cpu, and the fault drill.  No hand-
+   written kernel launches on the training path.
 
-Each kernel is timed per call (``time_ms``) and on the device
+``--only models`` / ``--only train`` is a development aid for iterating on
+those phases: it builds the kernels, runs just those phases and prints
+neither the kernels line nor the result line; the check is the run with no
+arguments.  Each kernel is timed per call (``time_ms``) and on the device
 (``device_time_ms``), and so is its library yardstick where one PyTorch call
 computes the same function (``library_ms``, ``library_device_ms``).  It
 prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as its
@@ -417,12 +441,13 @@ def ptxas_report(text: str):
         if m:
             k = re.search(r"(flash_fwd_wgmma|flash_fwd_f32|paged_split_mma|"
                           r"paged_split_f32|paged_combine)_kernelI(\w*?)Li"
-                          r"(\d+)E", m.group(1))
+                          r"(\d+)E(?:Li(\d+)E)?", m.group(1))
             dtype = ("bf16 " if "bfloat16" in k.group(2) else
                      "f32 " if k.group(2) == "f" else "") if k else ""
+            group = f" G<={k.group(4)}" if k and k.group(4) else ""
             plain = re.search(r"\d+([a-z][a-z_]*_(?:kernel|thread))"
                               r"(?:ILi(\d+)E)?E", m.group(1))
-            name = (f"{k.group(1)} {dtype}hd {k.group(3)}" if k else
+            name = (f"{k.group(1)} {dtype}hd {k.group(3)}{group}" if k else
                     plain.group(1) + (f"<{plain.group(2)}>"
                                       if plain.group(2) else "")
                     if plain else m.group(1))
@@ -1705,6 +1730,22 @@ def serve_prompts(rng, vocab: int, n: int = 8, shared: int = 1024,
 def phase_serve(args):
     """(b) llama3-8b at full width and depth serves 8 requests through the
     FUSEE prefix-cache pool on the card."""
+    eng, model, params, prompts, capture, launches = serve_arch(
+        args, "llama3-8b", "[serve]")
+    cache = eng.cache["layers"][0][0]
+    log(f"[serve] KV cache pages {tuple(cache.shape)} x2, "
+        f"{2 * cache.numel() * cache.element_size()} bytes")
+    serve_listing(eng, prompts)
+    profile_serve(model, params, prompts[4:])
+    return capture, launches
+
+
+def serve_arch(args, arch: str, tag: str):
+    """``arch`` at full width and depth, bf16 weights drawn from
+    ``--seed``, serves 8 requests (a shared 1024-token system prompt plus
+    128 tokens each, 16 new each, max_batch 4) through ``ServeEngine`` over
+    the FUSEE prefix-cache pool, with the launch counts set to 0 just
+    before the run and read just after."""
     import dataclasses
     import numpy as np
     import torch
@@ -1713,7 +1754,7 @@ def phase_serve(args):
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.models import build
     from repro_torch.serving import PoolConfig, Request, ServeEngine
-    cfg = get("llama3-8b")
+    cfg = get(arch)
     model = build(cfg, device="cuda")
     t0 = time.perf_counter()
     params = model.init(seed=args.seed)
@@ -1721,8 +1762,8 @@ def phase_serve(args):
     n_params = sum(t.numel() for t in tree_leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     padded = dataclasses.replace(cfg, vocab=model.vocab_p)   # = cfg here
-    check(n_params == padded.n_params(), "llama3-8b parameter count")
-    log(f"[serve] llama3-8b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    check(n_params == padded.n_params(), f"{arch} parameter count")
+    log(f"{tag} {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads, head_dim "
         f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} "
         f"parameters, {n_bytes} bytes of {model.dtype}, drawn from seed "
@@ -1742,7 +1783,7 @@ def phase_serve(args):
     model.decode_step(params, cache, toks[:, -1:])
     torch.cuda.synchronize()
     del cache
-    log(f"[serve] warm-up (one 4 x 1152 prefill, one decode step): "
+    log(f"{tag} warm-up (one 4 x 1152 prefill, one decode step): "
         f"{time.perf_counter() - t0:.3f} s")
     timing = {"prefill": [], "decode": []}
 
@@ -1790,7 +1831,7 @@ def phase_serve(args):
           f"serve: a kernel wrapper was called without launching: "
           f"{capture.calls} calls, {launches} launches")
     st = eng.pool.stats
-    log(f"[serve] 8 requests (1024 shared + 128 own tokens, 16 new each), "
+    log(f"{tag} 8 requests (1024 shared + 128 own tokens, 16 new each), "
         f"max_batch 4, max_len 2048, pool {SERVE_POOL}: {tokens} tokens in "
         f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; {n_pre} prefills "
         f"({', '.join(f'{t:.1f}' for t in timing['prefill'])} ms), {n_dec} "
@@ -1800,12 +1841,7 @@ def phase_serve(args):
         f"{st['search_batches']} search batches, {st['epochs']} SNAPSHOT "
         f"epochs; launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    cache = eng.cache["layers"][0][0]
-    log(f"[serve] KV cache pages {tuple(cache.shape)} x2, "
-        f"{2 * cache.numel() * cache.element_size()} bytes")
-    serve_listing(eng, prompts)
-    profile_serve(model, params, prompts[4:])
-    return capture, launches
+    return eng, model, params, prompts, capture, launches
 
 
 def serve_listing(eng, prompts):
@@ -1917,9 +1953,7 @@ def phase_serve_kernels(capture, launches):
     ``scaled_dot_product_attention`` (race_lookup's row is the fleet
     path's)."""
     import torch
-    from repro_torch.kernels import (flash_attention, flash_attention_plain,
-                                     paged_attention, paged_attention_plain,
-                                     race_lookup, race_lookup_plain)
+    from repro_torch.kernels import race_lookup, race_lookup_plain
     from repro_torch.kernels.paged_attention.ops import split_plan
     found = []
     for keys, table in capture.races:
@@ -1934,13 +1968,28 @@ def phase_serve_kernels(capture, launches):
         f"{len(found)} SEARCHes (table {tuple(table.shape)}): "
         f"{', '.join(found)} found; ptr and found equal to the plain "
         f"version's")
+    check(split_plan(capture.paged[3])[0] * capture.paged[2].shape[2]
+          * capture.paged[2].shape[3] >= 264, "paged_attention: fewer than "
+          "2 CTAs per SM at the serve shape")
+    return attn_rows(capture, launches, "[kernels]", "the serve run")
+
+
+def attn_rows(capture, launches, tag: str, run: str):
+    """Both attention kernels held against their plain versions on the
+    largest inputs a serve run gave them (``capture``) and timed there
+    beside their byte/FLOP bound and ``scaled_dot_product_attention``:
+    their rows of the kernels line."""
+    import torch
+    from repro_torch.kernels import (flash_attention, flash_attention_plain,
+                                     paged_attention, paged_attention_plain)
+    from repro_torch.kernels.paged_attention.ops import split_plan
     rows = []
     q, k, v, causal = capture.flash
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     out, used, err, typical = check_attn(
         flash_attention, flash_attention_plain, q, k, v, causal=causal,
-        what="flash_attention on the serve run's inputs")
+        what=f"flash_attention on {run}'s inputs")
     ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), iters=20)
     dev_ms = device_time_ms(lambda: flash_attention(q, k, v, causal=causal),
                             iters=20)
@@ -1964,7 +2013,7 @@ def phase_serve_kernels(capture, launches):
         bound_ms=1e3 * max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=lib_ms, library_device_ms=lib_dev_ms))
-    log(f"[kernels] flash_attention at the serve run's largest prefill: q "
+    log(f"{tag} flash_attention at {run}'s largest prefill: q "
         f"{tuple(q.shape)}, k/v {tuple(k.shape)}, {q.dtype}, causal "
         f"{causal}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
         f"device), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
@@ -1977,11 +2026,9 @@ def phase_serve_kernels(capture, launches):
     q, kc, vc, vl = capture.paged
     nb, tb, B, KV, hd = kc.shape
     H = q.shape[1]
-    check(split_plan(vl)[0] * B * KV >= 264, "paged_attention: fewer than "
-          "2 CTAs per SM at the serve shape")
     out, used, err, typical = check_attn(
         paged_attention, paged_attention_plain, q, kc, vc, vl,
-        what="paged_attention on the serve run's inputs")
+        what=f"paged_attention on {run}'s inputs")
     # a decode step's 32 layers each read their own pages, so every call
     # finds its pages cold in L2: time over copies that overflow its 50 MB
     pages = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(5)]
@@ -2016,7 +2063,7 @@ def phase_serve_kernels(capture, launches):
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=lib_ms, library_device_ms=lib_dev_ms))
     splits, chunk = split_plan(vl)
-    log(f"[kernels] paged_attention at the serve run's longest decode step: "
+    log(f"{tag} paged_attention at {run}'s longest decode step: "
         f"q {tuple(q.shape)}, pages {tuple(kc.shape)}, {q.dtype}, valid_len "
         f"{vl} ({splits} splits of {chunk} positions: {splits * B * KV} "
         f"CTAs); pages cold in L2 (6 copies in turn): kernel {ms:.4f} ms per "
@@ -2057,6 +2104,450 @@ def phase_serve_parity(seed: int):
         f"{gpu['requests']}; cuda launches {launches}")
 
 
+# ------------------------------------------------- the other dense decoders
+MODELS_CUT = 2          # layers of qwen3-32b, chameleon-34b, mistral-large
+
+
+def phase_models(args):
+    """[models] (a) smollm-360m at full width and depth serves the llama3-8b
+    phase's traffic through ``ServeEngine`` (head dim 64, G = 3); (b)
+    qwen3-32b, chameleon-34b and mistral-large-123b at full width and
+    ``MODELS_CUT`` layers run a 4 x 1152 prefill and 4 decode steps through
+    ``Model``; (c) the four configs at reduced size in f32 on cuda and on
+    cpu from the same weights.  Both attention kernels are held against
+    their plain versions on the largest inputs of each run and timed
+    beside SDPA."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.models import build
+    t_phase = time.perf_counter()
+    eng, model, params, prompts, capture, launches = serve_arch(
+        args, "smollm-360m", "[models]")
+    check(model.cfg.tie_embeddings and "lm_head" not in params,
+          "smollm-360m: the tied tree has an lm_head")
+    attn_rows(capture, launches, "[models] smollm-360m:", "the smollm run")
+    del eng, model, params, capture
+    torch.cuda.empty_cache()
+
+    for arch in ("qwen3-32b", "chameleon-34b", "mistral-large-123b"):
+        t0 = time.perf_counter()
+        full = get(arch)
+        cfg = dataclasses.replace(full, n_layers=MODELS_CUT)
+        model = build(cfg, device="cuda")
+        params = model.init(seed=args.seed)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        check(n_params == dataclasses.replace(
+            cfg, vocab=model.vocab_p).n_params(), f"{arch} parameter count")
+        rng = np.random.default_rng(args.seed)
+        toks = torch.as_tensor(np.stack(serve_prompts(rng, cfg.vocab)[:4]),
+                               dtype=torch.int64, device="cuda")
+        _, cache = model.prefill(params, toks, max_len=2048)  # warm-up
+        del cache
+        capture = ServeCapture()
+        reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = model.prefill(params, toks, max_len=2048)
+            torch.cuda.synchronize()
+            pre_ms = 1e3 * (time.perf_counter() - t1)
+            out, dec_ms = [], []
+            for _ in range(4):
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+                out.append(tok)
+                t1 = time.perf_counter()
+                logits, cache = model.decode_step(params, cache, tok)
+                torch.cuda.synchronize()
+                dec_ms.append(1e3 * (time.perf_counter() - t1))
+        finally:
+            capture.close()
+        launches = {k.__name__: k.launches for k in KERNELS}
+        check(launches["flash_attention"] == cfg.n_layers and
+              launches["paged_attention"] == 4 * cfg.n_layers,
+              f"{arch}: launches {launches} for one prefill and 4 decode "
+              f"steps of {cfg.n_layers} layers")
+        check(bool(torch.isfinite(logits).all()) and
+              int(cache["length"]) == toks.shape[1] + 4,
+              f"{arch}: non-finite logits or a wrong cache length")
+        words = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        log(f"[models] {arch}: full width (d_model {cfg.d_model}, "
+            f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads, head_dim "
+            f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, qk_norm "
+            f"{cfg.qk_norm}, family {cfg.family}), depth cut from "
+            f"{full.n_layers} to {cfg.n_layers} layers (the full model's "
+            f"bf16 weights, {2 * full.n_params() / 1e9:.1f} GB, would not "
+            f"leave room on the card; layers repeat, so {cfg.n_layers} cross "
+            f"every code path); {n_params} parameters, {words} bytes; one "
+            f"4 x 1152 prefill {pre_ms:.2f} ms, 4 decode steps "
+            f"{', '.join(f'{t:.2f}' for t in dec_ms)} ms; tokens "
+            f"{torch.cat(out, 1).tolist()}; launches {launches}")
+        attn_rows(capture, launches, f"[models] {arch}:", f"the {arch} run")
+        del model, params, cache, capture, logits
+        torch.cuda.empty_cache()
+        log(f"[models] {arch}: {time.perf_counter() - t0:.1f} s")
+
+    for arch in ("smollm-360m", "qwen3-32b", "mistral-large-123b",
+                 "chameleon-34b"):
+        models_reduced_parity(arch, args.seed)
+    log(f"[models] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def models_reduced_parity(arch: str, seed: int):
+    """``arch`` at reduced size in f32 on cuda and on cpu from the same
+    weights: prefill logits, then 4 greedy decode steps, equal within the
+    CPU tests' f32 bound (2e-5 + 2e-5 x |cpu|) and with equal tokens."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import get, reduced
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import build
+    cfg = reduced(get(arch))
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (2, 80))
+    params = build(cfg, device="cuda").init(seed=seed)
+    runs = {}
+    before = {k.__name__: k.launches for k in KERNELS}
+    for dev in ("cuda", "cpu"):
+        model = build(cfg, device=dev)
+        p = tree_map(lambda t: t.to(dev), params)
+        logits, cache = model.prefill(
+            p, torch.as_tensor(toks, device=dev), max_len=128)
+        seq, out = [logits.cpu()], []
+        for _ in range(4):
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(tok.cpu())
+            logits, cache = model.decode_step(p, cache, tok)
+            seq.append(logits.cpu())
+        runs[dev] = (seq, torch.cat(out, 1))
+        if dev == "cuda":
+            launches = {k.__name__: k.launches - before[k.__name__]
+                        for k in KERNELS}
+    check(launches["flash_attention"] == cfg.n_layers and
+          launches["paged_attention"] == 4 * cfg.n_layers,
+          f"reduced {arch} on cuda: launches {launches}")
+    check(torch.equal(runs["cuda"][1], runs["cpu"][1]),
+          f"reduced {arch}: tokens differ between cuda and cpu")
+    worst = 0.0
+    for a, b in zip(*(runs[d][0] for d in ("cuda", "cpu"))):
+        used, _, _ = check_close(a, b, 2e-5 + 2e-5 * b.abs(),
+                                 f"reduced {arch} logits, cuda vs cpu")
+        worst = max(worst, used)
+    log(f"[models] reduced {arch} (f32, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv heads, "
+        f"head_dim {cfg.hd}): prefill logits and 4 decode steps equal on "
+        f"cuda and cpu within 2e-5 + 2e-5 x |cpu| (at most {worst:.3f} of "
+        f"the bound), tokens {runs['cuda'][1].tolist()}; cuda launches "
+        f"{launches}")
+
+
+# ------------------------------------------------------------ training
+# The [train] run's token stream draws over the first 512 ids (the data
+# vocabulary of examples/train_smollm.py's reduced run); the model keeps
+# its whole 49 152-way head.  Over all 49 152 ids the planted classes
+# have 768 ids each, every id occurs about 5 times in 30 steps, and the
+# port's loss does not fall in 30 steps (tools/train_curve.py on the card;
+# tests/test_torch_train_vocab.py holds the two packages' curves equal on
+# such a stream at a small width).  Over 512 ids the loss falls from
+# ln 49 152 to about ln 512 = 6.24, the ids' support, and stays there for
+# 120 steps: the fall shows that the head learns which ids occur, not that
+# the blocks' gradients are right.  ``train_gradient_check`` holds those.
+TRAIN_DATA_VOCAB = 512
+
+
+def phase_train(args):
+    """[train] smollm-360m at full width and depth trains 30 steps (bf16
+    parameters, AdamW with f32 moments, lr 3e-3 with 5 warmup steps, remat
+    per layer, SyntheticLM batch 8 x seq 1024 over ``TRAIN_DATA_VOCAB``
+    ids, one microbatch) and its mean loss over the last 5 steps must be
+    at least 0.2 below the first 5's; one more step runs under
+    ``torch.profiler``;
+    then 3 steps with int8 moments; then ``train_gradient_check`` at full
+    width and depth in f32; then, at reduced size in f32 on the card,
+    ``train_reduced_checks``: one step with 1 and with 4 microbatches, each
+    against cpu, and the fault drill (a crash at step 12 of 16, a restore
+    from a checkpoint in a temporary directory, the run finished at 16)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves as leaves_of
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, Trainer
+    t_phase = time.perf_counter()
+    cfg = get("smollm-360m")
+    data = DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=1024, global_batch=8,
+                      seed=args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        for moments, steps in (("fp32", 30), ("int8", 3)):
+            model = build(cfg, device="cuda")
+            tr = Trainer(model, OptConfig(lr=3e-3, warmup_steps=5,
+                                          total_steps=60, moments=moments),
+                         TrainConfig(ckpt_every=10 ** 9, ckpt_dir=tmp),
+                         SyntheticLM(data))
+            tr.init_state(args.seed)
+            n_params = sum(t.numel() for t in leaves_of(tr.state["params"]))
+            check(n_params == cfg.n_params(), "smollm-360m parameter count")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = {k.__name__: k.launches for k in KERNELS}
+            t0 = time.perf_counter()
+            losses = tr.run(steps)
+            wall = time.perf_counter() - t0
+            check(all(k.launches == before[k.__name__] for k in KERNELS),
+                  "train: a hand-written kernel launched on the training "
+                  "path")
+            check(all(np.isfinite(losses)), f"train: loss {losses}")
+            dts = [h["dt"] for h in tr.history]
+            med = float(np.median(dts))
+            peak = torch.cuda.max_memory_allocated()
+            tag = (f"[train] smollm-360m full width and depth ({n_params} "
+                   f"parameters, bf16, remat {cfg.remat}), AdamW {moments} "
+                   f"moments, lr 3e-3 warmup 5, batch 8 x seq 1024 over "
+                   f"{TRAIN_DATA_VOCAB} token ids, {steps} steps")
+            if moments == "fp32":
+                first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+                check(last < first - 0.2, f"train: mean loss of the last 5 "
+                      f"steps {last:.4f} not 0.2 below the first 5's "
+                      f"{first:.4f}")
+                log(f"{tag}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean "
+                    f"of the first 5 {first:.4f}, of the last 5 {last:.4f}); "
+                    f"{wall:.2f} s with the final checkpoint's save; "
+                    f"median {1e3 * med:.2f} ms per step (min "
+                    f"{1e3 * min(dts):.2f}, max {1e3 * max(dts):.2f}, first "
+                    f"{1e3 * dts[0]:.2f}) = {8 * 1024 / med:.0f} tokens/s; "
+                    f"peak device memory {peak} bytes "
+                    f"({peak / 2 ** 30:.2f} GiB); stragglers "
+                    f"{tr.watchdog.summary()['stragglers']}; losses "
+                    f"{' '.join(f'{x:.4f}' for x in losses)}")
+                profile_train_step(tr)
+            else:
+                log(f"{tag}: losses {[round(x, 4) for x in losses]}; median "
+                    f"{1e3 * med:.2f} ms per step; peak device memory {peak} "
+                    f"bytes ({peak / 2 ** 30:.2f} GiB)")
+            del tr, model
+            torch.cuda.empty_cache()
+    train_gradient_check(args.seed)
+    torch.cuda.empty_cache()
+    train_reduced_checks(args.seed)
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def profile_train_step(tr):
+    """One more train step under ``torch.profiler``: wall time, the
+    device's busy share, and the top kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batch = tr._batch(tr.step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.state, _ = tr.step_fn(tr.state, batch)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    if not kern:
+        log(f"[train] profiled step: wall {wall_us / 1e3:.2f} ms; the "
+            f"profiler recorded no device activity (busy share not "
+            f"measured)")
+        return
+    busy_us = sum(e.self_device_time_total for e in kern)
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    log(f"[train] profiled step: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms (share {busy_us / wall_us:.3f}), "
+        f"{sum(e.count for e in kern)} kernels; top: " + "; ".join(
+            f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+            for e in kern[:8]))
+
+
+GRAD_CHECK_LAYERS = (0, 10, 21, 31)     # of smollm-360m's 32 layers
+GRAD_CHECK_STEP = 0.02                  # of a slice's rms, an element
+GRAD_CHECK_TOL = 0.02                   # relative, plus GRAD_CHECK_FLOOR
+GRAD_CHECK_FLOOR = 5e-8                 # f32 rounding in the forward
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def _loss_f64(model, params, batch) -> float:
+    """``model.loss`` with its cross-entropy summed in f64, so that a
+    difference of two losses is not rounded to the f32 ulp of the loss."""
+    import torch
+    with torch.no_grad():
+        logits = model.forward(params, batch["tokens"])
+    logits = logits[..., :model.cfg.vocab].double()
+    labels = batch["labels"]
+    valid = labels >= 0
+    picked = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    return float(((torch.logsumexp(logits, -1) - picked) * valid).sum()
+                 / valid.sum())
+
+
+def directional_grad_check(model, params, batch, picks, seed: int):
+    """Autograd's gradient g, taken as the trainer takes it, against a
+    difference quotient of the loss.  For each (name, leaf name, index) of
+    ``picks``, the slice ``leaf[index]`` (a contiguous view into
+    ``params``) moves along a random normal direction d drawn from
+    ``seed``, ``GRAD_CHECK_STEP`` x the slice's rms an element.  With D(t) =
+    (L(p + t d) - L(p - t d)) / 2, Richardson's (8 D(1) - D(2)) / 6, whose
+    error is fifth order in d, must equal g . d within ``GRAD_CHECK_TOL``
+    x |g . d| + ``GRAD_CHECK_FLOOR``.  Returns (name, g . d, the
+    difference, the share of the bound used) per pick."""
+    import torch
+    from repro_torch.train.trainer import _value_and_grad
+    _, grads = _value_and_grad(model, params, batch)
+    grad_of, param_of = dict(_named_leaves(grads)), dict(_named_leaves(params))
+    gen = torch.Generator().manual_seed(seed)
+    rows = []
+    for name, leaf_name, index in picks:
+        ps, gs = param_of[leaf_name], grad_of[leaf_name]
+        if index is not None:
+            ps, gs = ps[index], gs[index]
+        rms = max(float(ps.float().pow(2).mean().sqrt()), 1e-3)
+        d = (GRAD_CHECK_STEP * rms * torch.randn(ps.shape, generator=gen,
+                                                 dtype=torch.float64))
+        lin = float((gs.double().cpu() * d).sum())
+        d = d.to(ps.device, ps.dtype)
+        orig = ps.clone()
+        loss_at = {}
+        for t in (1, 2, -1, -2):
+            ps.copy_(orig).add_(d, alpha=t)
+            loss_at[t] = _loss_f64(model, params, batch)
+        ps.copy_(orig)
+        fd = (8 * (loss_at[1] - loss_at[-1]) - (loss_at[2] - loss_at[-2])) / 12
+        rows.append((name, lin, fd, abs(fd - lin)
+                     / (GRAD_CHECK_TOL * abs(lin) + GRAD_CHECK_FLOOR)))
+    return rows
+
+
+def train_gradient_check(seed: int):
+    """smollm-360m at full width and depth in f32 (batch 2 x seq 1024 over
+    ``TRAIN_DATA_VOCAB`` ids, remat per layer): every leaf of layers
+    ``GRAD_CHECK_LAYERS``, the final norm and the used rows of the tied
+    embedding through ``directional_grad_check``.  A gradient that is
+    wrong, missing or scaled in any of them fails, which the loss curve
+    alone cannot show."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get("smollm-360m"), dtype="float32")
+    model = build(cfg, device="cuda")
+    params = model.init(seed)
+    vocab, seq, layers = TRAIN_DATA_VOCAB, 1024, GRAD_CHECK_LAYERS
+    batch = {k: torch.from_numpy(v).to("cuda", torch.int64)
+             for k, v in SyntheticLM(DataConfig(
+                 vocab=vocab, seq_len=seq, global_batch=2,
+                 seed=seed)).batch_at(0).items()}
+    picks = [(f"embed[:{vocab}]", "/embed", slice(0, vocab)),
+             ("final_norm", "/final_norm", None)]
+    for i in layers:
+        picks += [(f"layer {i}{name[9:]}", name, i) for name, _ in
+                  _named_leaves(params["layers"][0], "/layers/0")]
+    rows = directional_grad_check(model, params, batch, picks, seed)
+    worst = max(rows, key=lambda r: r[3])
+    for name, lin, fd, used in rows:
+        check(used <= 1.0, f"train: gradient of {name}: g . d {lin:.6e}, "
+              f"difference quotient {fd:.6e} ({used:.3f} of the bound)")
+    log(f"[train] gradient check, smollm-360m ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, f32, remat {cfg.remat}, batch 2 x seq "
+        f"{seq}): {len(rows)} slices (every leaf of layers "
+        f"{', '.join(map(str, layers))}, final_norm, embed rows < {vocab}) "
+        f"agree with a difference quotient of the loss (step "
+        f"{GRAD_CHECK_STEP} x rms an element) within {GRAD_CHECK_TOL} x "
+        f"|g . d| + {GRAD_CHECK_FLOOR}, at most {worst[3]:.3f} of the "
+        f"bound ({worst[0]}: g . d {worst[1]:.6e}, difference "
+        f"{worst[2]:.6e}); |g . d| from "
+        f"{min(abs(r[1]) for r in rows):.3e} to "
+        f"{max(abs(r[1]) for r in rows):.3e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def train_reduced_checks(seed: int):
+    """Reduced smollm-360m in f32 on the card: one step with 1 and with 4
+    microbatches, each against the same step on cpu and the 4-microbatch
+    step against the 1-microbatch step, all within the CPU tests' bounds
+    (the loss within 2e-5 relative, each new parameter within
+    1e-4 x max|p| + 1e-6), and the fault drill."""
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import get, reduced
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig, Optimizer, tree_leaves
+    from repro_torch.train import TrainConfig, Trainer, make_train_step
+    cfg = reduced(get("smollm-360m"))
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (4, 32)))
+    params = build(cfg, device="cpu").init(seed=seed)
+    opt = Optimizer(OptConfig(lr=1e-3))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        for n_micro in (1, 4):
+            p = tree_map(lambda t: t.to(dev), params)
+            batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+            state, metrics = make_train_step(build(cfg, device=dev), opt,
+                                             n_micro=n_micro)(
+                {"params": p, "opt": opt.init(p)}, batch)
+            out[dev, n_micro] = (float(metrics["loss"]), [
+                t.cpu() for t in tree_leaves(state["params"])])
+    used = {}
+    for what, x, y in (("cuda vs cpu, 1 microbatch", ("cuda", 1), ("cpu", 1)),
+                       ("cuda vs cpu, 4 microbatches", ("cuda", 4),
+                        ("cpu", 4)),
+                       ("4 vs 1 microbatches on cuda", ("cuda", 4),
+                        ("cuda", 1))):
+        (la, pa), (lb, pb) = out[x], out[y]
+        check(abs(la - lb) <= 2e-5 * abs(lb),
+              f"train: loss {what}: {la} vs {lb}")
+        used[what] = max(float((a - b).abs().max())
+                         / (1e-4 * float(b.abs().max()) + 1e-6)
+                         for a, b in zip(pa, pb))
+        check(used[what] <= 1.0, f"train: new parameters {what} past the "
+              f"bound ({used[what]:.3f} of it)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(build(cfg, device="cuda"),
+                     OptConfig(lr=3e-3, warmup_steps=5, total_steps=60),
+                     TrainConfig(ckpt_every=5, ckpt_dir=tmp),
+                     SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                            global_batch=4, seed=seed)))
+        tr.init_state(seed)
+        losses, recovered = tr.run_with_recovery(16, fail_at=12)
+        check(recovered and tr.step == 16 and len(losses) == 6 and
+              tr.ckpt.latest().endswith("step_00000016"),
+              f"train: fault drill (recovered {recovered}, step {tr.step}, "
+              f"{len(losses)} losses after the restore)")
+    log(f"[train] reduced smollm-360m (f32) on the card: losses cuda "
+        f"{out['cuda', 1][0]:.7f} / {out['cuda', 4][0]:.7f} and cpu "
+        f"{out['cpu', 1][0]:.7f} / {out['cpu', 4][0]:.7f} with 1 / 4 "
+        f"microbatches; new parameters at most " + ", ".join(
+            f"{u:.3f} ({w})" for w, u in used.items()) + " of the bound "
+        f"1e-4 x max|p| + 1e-6; fault drill: crash "
+        f"at step 12 of 16, restored from step 10's checkpoint, finished at "
+        f"16 (losses after the restore {[round(x, 4) for x in losses]})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--keys", type=int, default=100_000)
@@ -2068,6 +2559,10 @@ def main(argv=None) -> int:
     ap.add_argument("--e-keys", type=int, default=40_000,
                     help="keys loaded for the YCSB-E phase")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("models", "train"), action="append",
+                    help="development aid: build the kernels and run only "
+                    "these phases (repeatable); prints no kernels line and "
+                    "no final result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2094,6 +2589,12 @@ def main(argv=None) -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", CUDA {torch.version.cuda}; nvidia-smi: {smi}")
     dev = torch.device("cuda")
+    if args.only:
+        for name in args.only:
+            {"models": phase_models, "train": phase_train}[name](args)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s (only "
+            f"{', '.join(args.only)})")
+        return 0
     phase_edge_checks(dev)
     phase_leaf_probe_edges(dev)
     phase_serve_edge_checks(dev)
@@ -2149,6 +2650,8 @@ def main(argv=None) -> int:
     del capture
     torch.cuda.empty_cache()
     phase_serve_parity(args.seed)
+    phase_models(args)
+    phase_train(args)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

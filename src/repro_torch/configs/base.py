@@ -145,7 +145,8 @@ def all_archs() -> List[str]:
 
 
 def _load_all():
-    from . import llama3_8b  # noqa: F401  (the one ported architecture)
+    from . import (chameleon_34b, llama3_8b, mistral_large_123b,  # noqa
+                   qwen3_32b, smollm_360m)
 
 
 def reduced(cfg: ArchConfig, *, n_layers: int = 2, d_model: int = 64,

@@ -39,7 +39,8 @@
 //     the consumers finish the current one.
 //   - Warpgroups 0 and 1 own 64 query rows each.  S = Q·Kᵀ is one wgmma
 //     m64n96k16 per 16 columns of hd, both operands K-major in shared memory
-//     (128-byte swizzle at hd 128, 32-byte at hd 16, as TMA wrote them).  The
+//     (128-byte swizzle at hd 64 and 128, 32-byte at hd 16, as TMA wrote
+//     them; hd 128 is two 64-column atoms, hd 64 one).  The
 //     online softmax runs on the accumulator registers with ex2 and
 //     log2(e)·hd^-0.5 folded into the exponent's FMA, masking element by
 //     element only in tiles that cross the diagonal or the ragged edge, and
@@ -263,6 +264,20 @@ __device__ __forceinline__ void mma_o(float (&d)[64], const uint32_t (&a)[4],
       : D64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+#define R32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+__device__ __forceinline__ void mma_o(float (&d)[32], const uint32_t (&a)[4],
+                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef R32
 __device__ __forceinline__ void mma_o(float (&d)[8], const uint32_t (&a)[4],
                                       uint64_t db) {
   asm volatile(
@@ -829,7 +844,7 @@ int launch(const Args& a, int is_bf16) {
 // (is_bf16 = 1) or all f32, 16-byte aligned.  bf16: each tensor's hd values
 // contiguous and its {row, head, batch} strides, in elements and multiples
 // of 8, in st[3i .. 3i + 2] for q, k, v, out (i = 0..3); f32: contiguous
-// (st unread).  hd in {16, 128} (the head dims of the port's configs);
+// (st unread).  hd in {16, 64, 128} (the head dims of the port's configs);
 // H % KV == 0; Sq >= 1, Skv >= 1; scale = hd^-0.5.  Returns a cudaError_t
 // (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -841,6 +856,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                (cudaStream_t)stream};
   switch (hd) {
     case 16: return launch<16>(a, is_bf16);
+    case 64: return launch<64>(a, is_bf16);
     case 128: return launch<128>(a, is_bf16);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -61,10 +61,13 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 8;           // positions per warp tile
 constexpr int kStages = 2;         // tiles in flight per warp
-constexpr int kMaxG = 8;           // query heads per kv head
+// MG, a template parameter of the split kernels, is the most query heads
+// per kv head an instance takes: 8 (llama3-8b and every config with
+// G <= 8 keep that instance and its registers) or 16 (G 9..16:
+// mistral-large-123b's 12)
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T, int HD>
+template <typename T, int HD, int MG>
 struct Shape {
   static constexpr int kRowBytes = HD * (int)sizeof(T);
   static constexpr int kChunks = kRowBytes / 16;     // 16-byte chunks a row
@@ -75,7 +78,7 @@ struct Shape {
   static constexpr int kDims = HD >= 32 ? HD / 32 : 1;  // P.V dims a lane
   // the warps' partial states, written over the rings once they are done
   static constexpr int kMergeBytes =
-      (int)sizeof(float) * kWarps * kMaxG * (2 + HD);
+      (int)sizeof(float) * kWarps * MG * (2 + HD);
   static constexpr int kTailBytes =
       kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
 };
@@ -124,9 +127,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // i % kStages of its ring (K rows then V rows, padded) with 16-byte
 // cp.async, one commit group per tile, empty past the last; positions past
 // p1 are zero-filled, never read.
-template <typename T, int HD>
+template <typename T, int HD, int MG>
 struct WarpTiles {
-  using S = Shape<T, HD>;
+  using S = Shape<T, HD, MG>;
   const T *kg, *vg;             // row 0 of this (b, kv head) in K and V
   size_t pitch;                 // values between positions
   int p0, p1, warp, lane, count;
@@ -170,9 +173,9 @@ struct WarpTiles {
 };
 
 // The four warps' online-softmax states, in shared memory as wm, wl
-// [warp][kMaxG] and wo [warp][kMaxG][HD], merged into the split's partial:
+// [warp][MG] and wo [warp][MG][HD], merged into the split's partial:
 // (m, l) to part_ml[slot * G + g] and o to part_o[(slot * G + g) * HD + d].
-template <int HD>
+template <int HD, int MG>
 __device__ __forceinline__ void write_partial(
     const float* wm, const float* wl, const float* wo,
     float* __restrict__ part_o, float2* __restrict__ part_ml, size_t slot,
@@ -181,14 +184,14 @@ __device__ __forceinline__ void write_partial(
     const int g = e / HD, d = e % HD;
     float M = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * kMaxG + g]);
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * MG + g]);
     const float mref = M == -INFINITY ? 0.f : M;
     float L = 0.f, acc = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float a = exp2f(wm[w * kMaxG + g] - mref);
-      L = fmaf(a, wl[w * kMaxG + g], L);
-      acc = fmaf(a, wo[(w * kMaxG + g) * HD + d], acc);
+      const float a = exp2f(wm[w * MG + g] - mref);
+      L = fmaf(a, wl[w * MG + g], L);
+      acc = fmaf(a, wo[(w * MG + g) * HD + d], acc);
     }
     part_o[slot * G * HD + e] = acc;
     if (d == 0) part_ml[slot * G + g] = make_float2(M, L);
@@ -199,7 +202,7 @@ __device__ __forceinline__ void write_partial(
 // [split * chunk, min(split * chunk + chunk, valid_len)), on the CUDA cores
 // (the f32 path).  Writes the split's (m, l) in log2 units to part_ml and
 // its unnormalised o to part_o, both laid out [B][KV][splits][G](...).
-template <int HD>
+template <int HD, int MG>
 __global__ void __launch_bounds__(kThreads)
 paged_split_f32_kernel(const float* __restrict__ q,
                        const float* __restrict__ kc,
@@ -207,14 +210,14 @@ paged_split_f32_kernel(const float* __restrict__ q,
                        float* __restrict__ part_o,
                        float2* __restrict__ part_ml, int B, int H, int KV,
                        int valid_len, int chunk, float qscale) {
-  using S = Shape<float, HD>;
+  using S = Shape<float, HD, MG>;
   const int G = H / KV;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);        // G x HD, log2 units
-  unsigned char* tail = smem + sizeof(float) * kMaxG * HD;
-  const WarpTiles<float, HD> tiles(kc, vc, tail, B, KV, valid_len, chunk);
+  unsigned char* tail = smem + sizeof(float) * MG * HD;
+  const WarpTiles<float, HD, MG> tiles(kc, vc, tail, B, KV, valid_len, chunk);
 #pragma unroll
   for (int i = 0; i < kStages; ++i) tiles.fetch(i);
 
@@ -222,9 +225,9 @@ paged_split_f32_kernel(const float* __restrict__ q,
   for (int e = tid; e < G * HD; e += kThreads) qs[e] = qg[e] * qscale;
   __syncthreads();
 
-  float m[kMaxG], l[kMaxG], o[kMaxG][S::kDims];
+  float m[MG], l[MG], o[MG][S::kDims];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
+  for (int g = 0; g < MG; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
@@ -239,16 +242,16 @@ paged_split_f32_kernel(const float* __restrict__ q,
     const unsigned char* st = tiles.stage(i);
     const int pos = tiles.first(i) + t;
 
-    float s[kMaxG];
+    float s[MG];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
+    for (int g = 0; g < MG; ++g) s[g] = 0.f;
     const float* kr = reinterpret_cast<const float*>(st + t * S::kPitch);
 #pragma unroll 4
     for (int c = quarter; c < S::kChunks; c += 4) {
       float kv[S::kElems];
       load_vals<S::kElems>(kr + c * S::kElems, kv);
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
+      for (int g = 0; g < MG; ++g) {
         if (g < G) {
           const float* qq = qs + g * HD + c * S::kElems;
 #pragma unroll
@@ -266,7 +269,7 @@ paged_split_f32_kernel(const float* __restrict__ q,
     // online softmax over the tile's 8 positions (lanes 4t..4t+3 share
     // position t), in log2 units
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < MG; ++g) {
       if (g < G) {
         float x = s[g];
         x += __shfl_xor_sync(0xffffffffu, x, 1);
@@ -298,15 +301,15 @@ paged_split_f32_kernel(const float* __restrict__ q,
         lane * S::kDims;
 #pragma unroll
     for (int r = 0; r < kTile; ++r) {
-      float pv[kMaxG];
+      float pv[MG];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
+      for (int g = 0; g < MG; ++g)
         pv[g] = g < G ? __shfl_sync(0xffffffffu, s[g], r * 4) : 0.f;
       if (has_dims) {
         float v[S::kDims];
         load_vals<S::kDims>(vr + r * (S::kPitch / 4), v);
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
+        for (int g = 0; g < MG; ++g)
           if (g < G) {
 #pragma unroll
             for (int d = 0; d < S::kDims; ++d)
@@ -322,28 +325,28 @@ paged_split_f32_kernel(const float* __restrict__ q,
   // the last groups committed are empty)
   cp_async_wait<0>();
   __syncthreads();
-  float* wm = reinterpret_cast<float*>(tail);        // [warp][kMaxG]
-  float* wl = wm + kWarps * kMaxG;                   // [warp][kMaxG]
-  float* wo = wl + kWarps * kMaxG;                   // [warp][kMaxG][HD]
+  float* wm = reinterpret_cast<float*>(tail);        // [warp][MG]
+  float* wl = wm + kWarps * MG;                      // [warp][MG]
+  float* wo = wl + kWarps * MG;                      // [warp][MG][HD]
   if (lane == 0) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      wm[warp * kMaxG + g] = m[g];
-      wl[warp * kMaxG + g] = l[g];
+    for (int g = 0; g < MG; ++g) {
+      wm[warp * MG + g] = m[g];
+      wl[warp * MG + g] = l[g];
     }
   }
   if (has_dims) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
+    for (int g = 0; g < MG; ++g)
       if (g < G) {
 #pragma unroll
         for (int d = 0; d < S::kDims; ++d)
-          wo[(warp * kMaxG + g) * HD + lane * S::kDims + d] = o[g][d];
+          wo[(warp * MG + g) * HD + lane * S::kDims + d] = o[g][d];
       }
   }
   __syncthreads();
-  write_partial<HD>(wm, wl, wo, part_o, part_ml,
-                    ((size_t)b * KV + kvh) * gridDim.x + blockIdx.x, G);
+  write_partial<HD, MG>(wm, wl, wo, part_o, part_ml,
+                        ((size_t)b * KV + kvh) * gridDim.x + blockIdx.x, G);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -394,6 +397,41 @@ __device__ __forceinline__ void ldmatrix_trans(uint32_t (&r)[N],
         : "r"(addr));
 }
 
+// The A . B products of a warp's tile with R = MG / 8 query heads a lane:
+// R = 1 fills rows g of A (rows 8..15 zero, their accumulators dropped),
+// R = 2 rows g and g + 8.  S: d[2r + e] += (row g + 8r of A, 16 k) . B;
+// a[2r] holds row g + 8r's k 2t, 2t + 1 and a[2r + 1] its k 2t + 8, 2t + 9.
+template <int R>
+__device__ __forceinline__ void mma_s(float (&d)[2 * R],
+                                      const uint32_t (&a)[2 * R],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (R == 1) {
+    mma_16816(d, a[0], a[1], b0, b1);
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[2]), "r"(a[1]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+// P V: d[2r + e] += (row g + 8r of P, 8 k) . B, pa[r] row g + 8r's P
+template <int R>
+__device__ __forceinline__ void mma_pv(float (&d)[2 * R],
+                                       const uint32_t (&pa)[R],
+                                       uint32_t b0) {
+  if constexpr (R == 1) {
+    mma_1688(d, pa[0], b0);
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(pa[0]), "r"(pa[1]), "r"(b0));
+  }
+}
+
 // The bf16 split on the tensor cores: the same splits, tiles, ring and
 // partials as paged_split_f32_kernel, but each warp's tile of 8 positions is
 // two mma.sync products with the G query heads as the rows of A (rows past
@@ -402,18 +440,21 @@ __device__ __forceinline__ void ldmatrix_trans(uint32_t (&r)[N],
 // O += P V in HD / 8 m16n8k8 steps, P's accumulator layout being exactly
 // the A fragment of the second product and V's fragments coming from
 // ldmatrix.trans.  Lane (g, t) = (lane / 4, lane % 4) owns head g's scores
-// at positions 2t, 2t + 1 and its outputs at dims 8n + 2t, 8n + 2t + 1.
-// (At 140 registers a thread, three CTAs fit an SM and the serve shape's
-// 608 do not all run at once; the launch bound asks for four.)
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 4)
+// at positions 2t, 2t + 1 and its outputs at dims 8n + 2t, 8n + 2t + 1, and
+// with MG = 16 head g + 8's as well (A's rows 8..15, empty at MG = 8).
+// (MG = 8: at 140 registers a thread, three CTAs fit an SM and the serve
+// shape's 608 do not all run at once; the launch bound asks for four.
+// MG = 16 holds twice the scores and outputs and asks for two.)
+template <int HD, int MG>
+__global__ void __launch_bounds__(kThreads, MG == 8 ? 4 : 2)
 paged_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ kc,
                        const __nv_bfloat16* __restrict__ vc,
                        float* __restrict__ part_o,
                        float2* __restrict__ part_ml, int B, int H, int KV,
                        int valid_len, int chunk, float qscale) {
-  using S = Shape<__nv_bfloat16, HD>;
+  using S = Shape<__nv_bfloat16, HD, MG>;
+  constexpr int R = MG / 8;                   // query heads a lane owns
   constexpr int NT = HD / 8;                  // 8-dim output tiles
   constexpr int LD = NT >= 4 ? 4 : NT;        // of them per ldmatrix
   const int G = H / KV;
@@ -421,23 +462,35 @@ paged_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   extern __shared__ __align__(16) unsigned char tail[];   // no Q in smem
-  const WarpTiles<__nv_bfloat16, HD> tiles(kc, vc, tail, B, KV, valid_len,
-                                           chunk);
+  const WarpTiles<__nv_bfloat16, HD, MG> tiles(kc, vc, tail, B, KV,
+                                               valid_len, chunk);
 #pragma unroll
   for (int i = 0; i < kStages; ++i) tiles.fetch(i);
 
-  // head g's row of Q as A fragments, straight from device memory
-  uint32_t qa[HD / 16][2];
-  const uint32_t* qg = reinterpret_cast<const uint32_t*>(
-      q + ((size_t)b * H + (size_t)kvh * G + g) * HD);
+  // the rows of Q of heads g (and g + 8) as A fragments, straight from
+  // device memory
+  uint32_t qa[HD / 16][2 * R];
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    qa[kk][0] = g < G ? qg[8 * kk + t] : 0u;
-    qa[kk][1] = g < G ? qg[8 * kk + 4 + t] : 0u;
+  for (int r = 0; r < R; ++r) {
+    const int h = g + 8 * r;
+    const uint32_t* qg = reinterpret_cast<const uint32_t*>(
+        q + ((size_t)b * H + (size_t)kvh * G + h) * HD);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qa[kk][2 * r] = h < G ? qg[8 * kk + t] : 0u;
+      qa[kk][2 * r + 1] = h < G ? qg[8 * kk + 4 + t] : 0u;
+    }
   }
-  float m = -INFINITY, l = 0.f, o[NT][2];
+  float m[R], l[R], o[NT][2 * R];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = 0.f;
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2 * R; ++e) o[n][e] = 0.f;
 
   for (int i = 0; i < tiles.count; ++i) {
     cp_async_wait<kStages - 1>();
@@ -445,25 +498,33 @@ paged_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const unsigned char* st = tiles.stage(i);
     const int pos = tiles.first(i) + 2 * t;
 
-    float sc[2] = {0.f, 0.f};
+    float sc[2 * R];
+#pragma unroll
+    for (int e = 0; e < 2 * R; ++e) sc[e] = 0.f;
     const uint32_t* kr =
         reinterpret_cast<const uint32_t*>(st + g * S::kPitch);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      mma_16816(sc, qa[kk][0], qa[kk][1], kr[8 * kk + t], kr[8 * kk + 4 + t]);
-    const float s0 = pos < tiles.p1 ? sc[0] * qscale : -INFINITY;
-    const float s1 = pos + 1 < tiles.p1 ? sc[1] * qscale : -INFINITY;
-    float mx = fmaxf(s0, s1);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    // a warp may have seen no valid position yet: keep exp2 finite
-    const float mref = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = exp2f(m - mref);
-    const float e0 = exp2f(s0 - mref), e1 = exp2f(s1 - mref);
-    l = l * alpha + e0 + e1;                 // this lane's share of l
-    m = m_new;
-    const uint32_t pa = pack_bf16(e0, e1);
+      mma_s<R>(sc, qa[kk], kr[8 * kk + t], kr[8 * kk + 4 + t]);
+    float alpha[R];
+    uint32_t pa[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float s0 = pos < tiles.p1 ? sc[2 * r] * qscale : -INFINITY;
+      const float s1 =
+          pos + 1 < tiles.p1 ? sc[2 * r + 1] * qscale : -INFINITY;
+      float mx = fmaxf(s0, s1);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      // a warp may have seen no valid position yet: keep exp2 finite
+      const float mref = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2f(m[r] - mref);
+      const float e0 = exp2f(s0 - mref), e1 = exp2f(s1 - mref);
+      l[r] = l[r] * alpha[r] + e0 + e1;      // this lane's share of l
+      m[r] = m_new;
+      pa[r] = pack_bf16(e0, e1);
+    }
     const uint32_t vt =
         (uint32_t)__cvta_generic_to_shared(st + kTile * S::kPitch) +
         (lane & 7) * S::kPitch + ((lane >> 3) % LD) * 16;
@@ -473,36 +534,43 @@ paged_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
       ldmatrix_trans<LD>(bv, vt + n0 * 16);
 #pragma unroll
       for (int j = 0; j < LD; ++j) {
-        o[n0 + j][0] *= alpha;
-        o[n0 + j][1] *= alpha;
-        mma_1688(o[n0 + j], pa, bv[j]);
+#pragma unroll
+        for (int e = 0; e < 2 * R; ++e) o[n0 + j][e] *= alpha[e / 2];
+        mma_pv<R>(o[n0 + j], pa, bv[j]);
       }
     }
     __syncwarp();                        // the stage is read: refill it
     tiles.fetch(i + kStages);
   }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
 
   cp_async_wait<0>();
   __syncthreads();
-  float* wm = reinterpret_cast<float*>(tail);        // [warp][kMaxG]
-  float* wl = wm + kWarps * kMaxG;                   // [warp][kMaxG]
-  float* wo = wl + kWarps * kMaxG;                   // [warp][kMaxG][HD]
-  if (g < G) {
-    if (t == 0) {
-      wm[warp * kMaxG + g] = m;
-      wl[warp * kMaxG + g] = l;
-    }
+  float* wm = reinterpret_cast<float*>(tail);        // [warp][MG]
+  float* wl = wm + kWarps * MG;                      // [warp][MG]
+  float* wo = wl + kWarps * MG;                      // [warp][MG][HD]
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      wo[(warp * kMaxG + g) * HD + 8 * n + 2 * t] = o[n][0];
-      wo[(warp * kMaxG + g) * HD + 8 * n + 2 * t + 1] = o[n][1];
+  for (int r = 0; r < R; ++r) {
+    const int h = g + 8 * r;
+    if (h < G) {
+      if (t == 0) {
+        wm[warp * MG + h] = m[r];
+        wl[warp * MG + h] = l[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        wo[(warp * MG + h) * HD + 8 * n + 2 * t] = o[n][2 * r];
+        wo[(warp * MG + h) * HD + 8 * n + 2 * t + 1] = o[n][2 * r + 1];
+      }
     }
   }
   __syncthreads();
-  write_partial<HD>(wm, wl, wo, part_o, part_ml,
-                    ((size_t)b * KV + kvh) * gridDim.x + blockIdx.x, G);
+  write_partial<HD, MG>(wm, wl, wo, part_o, part_ml,
+                        ((size_t)b * KV + kvh) * gridDim.x + blockIdx.x, G);
 }
 
 // out[b, kvh * G + g, :] from the `splits` partials of (b, kv head), one
@@ -535,30 +603,30 @@ paged_combine_kernel(const float* __restrict__ part_o,
       from_f<T>(acc / fmaxf(L, 1e-30f));
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int MG>
 int launch(const void* q, const void* kc, const void* vc, void* o,
            float* part_o, float2* part_ml, int B, int H, int KV,
            int valid_len, int chunk, int splits, float scale,
            cudaStream_t stream) {
-  using S = Shape<T, HD>;
+  using S = Shape<T, HD, MG>;
   const dim3 grid(splits, KV, B);
   cudaError_t err;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const size_t smem = S::kTailBytes;
-    err = cudaFuncSetAttribute(paged_split_mma_kernel<HD>,
+    err = cudaFuncSetAttribute(paged_split_mma_kernel<HD, MG>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    paged_split_mma_kernel<HD><<<grid, kThreads, smem, stream>>>(
+    paged_split_mma_kernel<HD, MG><<<grid, kThreads, smem, stream>>>(
         (const T*)q, (const T*)kc, (const T*)vc, part_o, part_ml, B, H, KV,
         valid_len, chunk, scale * kLog2e);
   } else {
-    const size_t smem = sizeof(float) * kMaxG * HD + S::kTailBytes;
-    err = cudaFuncSetAttribute(paged_split_f32_kernel<HD>,
+    const size_t smem = sizeof(float) * MG * HD + S::kTailBytes;
+    err = cudaFuncSetAttribute(paged_split_f32_kernel<HD, MG>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    paged_split_f32_kernel<HD><<<grid, kThreads, smem, stream>>>(
+    paged_split_f32_kernel<HD, MG><<<grid, kThreads, smem, stream>>>(
         (const float*)q, (const float*)kc, (const float*)vc, part_o, part_ml,
         B, H, KV, valid_len, chunk, scale * kLog2e);
   }
@@ -580,17 +648,32 @@ int launch(const void* q, const void* kc, const void* vc, void* o,
   return (int)cudaGetLastError();
 }
 
+// the instance of (hd, G): MG = 8 for G <= 8, else 16
+template <typename T, int HD>
+int launch_g(const void* q, const void* kc, const void* vc, void* o,
+             float* po, float2* pml, int B, int H, int KV, int vl, int chunk,
+             int splits, float sc, cudaStream_t s) {
+  if (H / KV <= 8)
+    return launch<T, HD, 8>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
+                            splits, sc, s);
+  return launch<T, HD, 16>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
+                           splits, sc, s);
+}
+
 template <typename T>
 int dispatch(int hd, const void* q, const void* kc, const void* vc, void* o,
              float* po, float2* pml, int B, int H, int KV, int vl, int chunk,
              int splits, float sc, cudaStream_t s) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
-                           splits, sc, s);
+      return launch_g<T, 16>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
+                             splits, sc, s);
+    case 64:
+      return launch_g<T, 64>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
+                             splits, sc, s);
     case 128:
-      return launch<T, 128>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
-                            splits, sc, s);
+      return launch_g<T, 128>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
+                              splits, sc, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -598,8 +681,8 @@ int dispatch(int hd, const void* q, const void* kc, const void* vc, void* o,
 }  // namespace
 
 // q (B, H, hd), kc/vc (nb, tb, B, KV, hd), out (B, H, hd): contiguous,
-// 16-byte aligned, all bf16 (is_bf16 = 1) or all f32.  hd in {16, 128}
-// (the head dims of the port's configs); H / KV <= 8; 1 <= valid_len <=
+// 16-byte aligned, all bf16 (is_bf16 = 1) or all f32.  hd in {16, 64, 128}
+// (the head dims of the port's configs); H / KV <= 16; 1 <= valid_len <=
 // nb * tb; splits = ceil(valid_len / chunk); part_o holds B * KV * splits
 // * H / KV * hd floats and part_ml B * KV * splits * H / KV float pairs;
 // scale = hd^-0.5.  Launches the split kernel and the combine on `stream`.
@@ -611,7 +694,7 @@ extern "C" int paged_attention_launch(const void* q, const void* kc,
                                       int chunk, int splits, float scale,
                                       int is_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (KV < 1 || H % KV != 0 || H / KV > kMaxG || valid_len < 1 ||
+  if (KV < 1 || H % KV != 0 || H / KV > 16 || valid_len < 1 ||
       chunk < 1 || splits != (valid_len + chunk - 1) / chunk)
     return (int)cudaErrorInvalidValue;
   float* po = (float*)part_o;

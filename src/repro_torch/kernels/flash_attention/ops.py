@@ -24,7 +24,8 @@ from .. import build
 
 __all__ = ["flash_attention", "flash_attention_plain"]
 
-HEAD_DIMS = (16, 128)    # instantiated: llama3-8b and its reduced form
+HEAD_DIMS = (16, 64, 128)   # instantiated: the reduced configs, smollm,
+                            # and the other dense configs
 NEG_INF = -1e30                     # masked score, as in the reference
 
 

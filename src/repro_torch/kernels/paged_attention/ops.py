@@ -26,8 +26,9 @@ from .. import build
 
 __all__ = ["paged_attention", "paged_attention_plain", "split_plan"]
 
-HEAD_DIMS = (16, 128)    # instantiated: llama3-8b and its reduced form
-MAX_GROUP = 8                       # query heads per kv head in the kernel
+HEAD_DIMS = (16, 64, 128)   # instantiated: the reduced configs, smollm,
+                            # and the other dense configs
+MAX_GROUP = 16                      # query heads per kv head in the kernel
 NEG_INF = -1e30                     # masked score, as in the reference
 SPLIT_CHUNK = 64                    # positions per split: 4 warps x 2 tiles
 

@@ -15,17 +15,24 @@ default decode folds the new token into the softmax instead
 (``attn_decode_readonly``); both compute the same function.  The cache is
 updated in place.
 
-Counterpart of the serving half of the JAX package's
-``models/attention.py``; cross-attention and the training path are not
-ported yet (ROADMAP A9).
+Training runs ``attn_train``: plain torch ops under autograd, the
+counterpart of the JAX package's ``flash_attention_jnp`` (no kernel runs
+there, as none does in the reference's training path; the hand-written
+``flash_attention`` has no backward).
+
+Counterpart of the JAX package's ``models/attention.py``; cross-attention
+is not ported yet (ROADMAP A9.2).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import paged_attention
 from .common import ParamInit, apply_rope, rms_norm
+
+NEG_INF = -1e30                     # masked score, as in the reference
 
 
 def make_attn_params(pi: ParamInit, n: int, d_model: int, n_heads: int,
@@ -58,6 +65,60 @@ def project_qkv(p, x, rope, qk_norm: bool):
         k = rms_norm(k, p["k_norm"])
     cos, sin = rope
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _q_chunk_attn(qc, k, v, q0: int, causal: bool):
+    """One query chunk: qc (B, qc, H, hd) at positions q0.., k/v (B, Skv,
+    H, hd) already repeated to H heads.  Scores and the P V product in f32
+    (bf16 operands are exact in f32, as the reference's
+    ``preferred_element_type``), P rounded to q's dtype first."""
+    dt = qc.dtype
+    hd = qc.shape[-1]
+    n, skv = qc.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bshd->bhqs", qc.float(), k.float()) * hd ** -0.5
+    if causal:
+        q_pos = q0 + torch.arange(n, device=qc.device)
+        kv_pos = torch.arange(skv, device=qc.device)
+        s = s.masked_fill(~(q_pos[:, None] >= kv_pos[None, :]), NEG_INF)
+    m = s.amax(dim=-1, keepdim=True).detach()
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqs,bshd->bqhd", p.to(dt).float(), v.float())
+    return (o / l.clamp_min(1e-30).transpose(1, 2)).to(dt)
+
+
+def flash_attention_train(q, k, v, *, causal: bool, q_chunk: int):
+    """Chunked attention for training, under autograd: the JAX package's
+    ``flash_attention_jnp``.  q (B, Sq, H, hd); k/v (B, Skv, KV, hd)
+    repeated to H heads; queries in chunks of ``q_chunk`` (halved until it
+    divides Sq), each chunk recomputed in the backward pass
+    (``checkpoint``) instead of keeping its score panel, as the reference's
+    ``jax.checkpoint`` over its query scan does."""
+    B, Sq, H, hd = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    q_chunk = min(q_chunk, Sq)
+    while Sq % q_chunk:
+        q_chunk //= 2
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        qc = q[:, q0:q0 + q_chunk]
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(_q_chunk_attn, qc, k, v, q0, causal,
+                                   use_reentrant=False))
+        else:
+            outs.append(_q_chunk_attn(qc, k, v, q0, causal))
+    return torch.cat(outs, dim=1)
+
+
+def attn_train(p, x, rope, *, qk_norm: bool, q_chunk: int):
+    """Causal self-attention of the training forward (every position's
+    output), through ``flash_attention_train``."""
+    q, k, v = project_qkv(p, x, rope, qk_norm)
+    return _out(p, flash_attention_train(q, k, v, causal=True,
+                                         q_chunk=q_chunk))
 
 
 def _out(p, o):

@@ -1,5 +1,5 @@
 """Shared model components: parameter init, RMSNorm, RoPE, embeddings, the
-LM head, dtype policy.
+LM head, the training loss, dtype policy.
 
 Parameters are plain nested dicts of tensors in the JAX package's layout
 (``models/convert.py`` maps its trees over one to one).  Init draws from an
@@ -32,10 +32,13 @@ def pad_to_multiple(n: int, m: int) -> int:
 class ParamInit:
     """Draws parameters of one dtype on one device from a seeded
     generator, with the JAX package's init rules (normal with std
-    ``scale / sqrt(fan_in)``, ones, zeros, scaled-normal embeddings)."""
+    ``scale / sqrt(fan_in)``, ones, zeros, scaled-normal embeddings).
+    With no generator it draws nothing and returns storage-less tensors on
+    the ``meta`` device: a tree's structure, shapes and dtypes (what a
+    checkpoint restore needs)."""
 
-    def __init__(self, generator: torch.Generator, dtype: torch.dtype,
-                 device: torch.device):
+    def __init__(self, generator: Optional[torch.Generator],
+                 dtype: torch.dtype, device: torch.device):
         self.gen = generator
         self.dtype = dtype
         self.device = device
@@ -43,6 +46,8 @@ class ParamInit:
     def param(self, shape: Sequence[int], init: str = "normal",
               scale: float = 1.0, fan_in: Optional[int] = None):
         shape = tuple(shape)
+        if self.gen is None:
+            return torch.empty(shape, dtype=self.dtype, device="meta")
         if init == "ones":
             return torch.ones(shape, dtype=self.dtype, device=self.device)
         if init == "zeros":
@@ -100,3 +105,22 @@ def lm_head(x: torch.Tensor, table: torch.Tensor, transpose: bool):
     if transpose:
         return torch.einsum("bsd,vd->bsv", x, w).float()
     return torch.einsum("bsd,dv->bsv", x, w).float()
+
+
+# ------------------------------------------------------------------- loss --
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab: int) -> torch.Tensor:
+    """logits (B, S, Vp); labels (B, S) with -1 = masked.  ``vocab`` is the
+    true vocabulary size: the padded logit columns are masked.  The mean
+    negative log-likelihood over the unmasked labels, in f32."""
+    vp = logits.shape[-1]
+    logits = logits.float()
+    if vp != vocab:
+        pad = torch.arange(vp, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, -1e30)
+    valid = labels >= 0
+    labels_c = labels.clamp(0, vocab - 1).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels_c[..., None])[..., 0]
+    nll = (lse - picked) * valid
+    return nll.sum() / valid.sum().clamp_min(1)

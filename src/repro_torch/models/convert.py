@@ -1,10 +1,13 @@
 """The JAX package's model parameters, as numpy arrays, to the port's
-parameter tree (same nesting, same layouts, same values).
+trees (same nesting, same layouts, same values).
 
 ``params_from_jax(jax.tree.map(np.asarray, params), device="cpu")`` gives
-the port a model that computes what the JAX model computes.  Imports no
-JAX: the caller turns JAX arrays into numpy first (bfloat16 arrays arrive
-with numpy's ``bfloat16`` extension dtype and keep their bits).
+the port a model that computes what the JAX model computes (any dense
+tree: tied embeddings have no ``lm_head``, qk-norm layers carry
+``q_norm``/``k_norm``); ``optim.opt_state_from_jax`` does the same for an
+optimizer state.  Imports no JAX: the caller turns JAX arrays into numpy
+first (bfloat16 arrays arrive with numpy's ``bfloat16`` extension dtype
+and keep their bits).
 """
 from __future__ import annotations
 
@@ -37,3 +40,4 @@ def params_from_jax(tree: Any, device=None) -> Any:
         return _tensor(np.asarray(x), dev)
 
     return conv(tree)
+

@@ -1,5 +1,5 @@
-"""The dense decoder LM of the serving path: prefill and decode against the
-page-major KV cache.
+"""The dense decoder LM: the training forward and loss, and prefill and
+decode against the page-major KV cache.
 
 The parameter tree is the JAX package's, as plain nested dicts of tensors:
 ``embed`` (Vp, D), ``final_norm`` (D,), ``lm_head`` (D, Vp) unless tied,
@@ -8,26 +8,40 @@ the ``n_super`` layers.  Methods take the tree explicitly, as the JAX
 ``Model`` does, so the tests can run the JAX package's parameters
 (``models/convert.py``).  Layers run in a Python loop over the stack.
 
-Counterpart of the dense-family serving path of the JAX package's
-``models/model.py``.  Not ported yet (ROADMAP A9): the other families (MoE,
-mamba, xlstm, whisper's encoder-decoder), the training forward and loss.
-The mesh and its sharding constraints have no single-card use and are
-left out.
+Which configurations run the dense stack follows the reference's
+``superblock``: a family that is neither ``ssm`` nor ``hybrid``, with no
+MoE and no encoder-decoder, is one attention + dense-FFN layer repeated
+``n_layers`` times.  That covers ``dense`` and ``vlm`` (chameleon's
+early-fusion backbone: its image tokens are ordinary vocabulary ids).
+
+Counterpart of the dense-family paths of the JAX package's
+``models/model.py``.  Not ported yet (ROADMAP A9.2): the other families
+(MoE, mamba, xlstm, whisper's encoder-decoder).  The mesh and its
+sharding constraints have no single-card use and are left out.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.heap import resolve_device
 from . import attention as A
 from . import ffn as F
 from .common import (ParamInit, dtype_of, embed_lookup, lm_head,
-                     pad_to_multiple, rms_norm, rope_angles)
+                     pad_to_multiple, rms_norm, rope_angles,
+                     softmax_cross_entropy)
 
 PAGE_TOKENS = 1024      # t_blk of the KV cache's pages
+
+
+def runs_dense_stack(cfg: ArchConfig) -> bool:
+    """The reference's ``superblock`` rule for the dense stack: neither
+    recurrent family, no MoE FFN, no encoder-decoder."""
+    return (cfg.family not in ("ssm", "hybrid") and cfg.moe is None
+            and not cfg.enc_dec)
 
 
 def _layer(tree, i: int):
@@ -43,10 +57,11 @@ class Model(torch.nn.Module):
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        if cfg.family != "dense" or cfg.moe is not None or cfg.enc_dec:
+        if not runs_dense_stack(cfg):
             raise NotImplementedError(
-                f"{cfg.arch_id}: only the dense family is ported; MoE, "
-                "mamba, xlstm and encoder-decoder models wait (ROADMAP A9)")
+                f"{cfg.arch_id}: only the dense stack (families dense and "
+                "vlm) is ported; MoE, mamba, xlstm and encoder-decoder "
+                "models wait (ROADMAP A9.2)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_super = cfg.n_layers
@@ -57,9 +72,16 @@ class Model(torch.nn.Module):
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random parameters from a ``torch.Generator`` seeded with
         ``seed`` on the model's device."""
-        cfg, n = self.cfg, self.n_super
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        pi = ParamInit(gen, self.dtype, self.device)
+        return self._build(ParamInit(gen, self.dtype, self.device))
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The parameter tree as storage-less ``meta`` tensors (its
+        structure, shapes and dtypes)."""
+        return self._build(ParamInit(None, self.dtype, self.device))
+
+    def _build(self, pi: ParamInit) -> Dict[str, Any]:
+        cfg, n = self.cfg, self.n_super
         tree: Dict[str, Any] = {
             "embed": pi.param((self.vocab_p, cfg.d_model), init="embed",
                               scale=0.02),
@@ -89,6 +111,41 @@ class Model(torch.nn.Module):
     def _ffn(self, p, x):
         return x + F.dense_ffn(p["ffn"], rms_norm(x, p["ln2"],
                                                   self.cfg.norm_eps))
+
+    # ----------------------------------------------------------- training --
+    def _train_block(self, p, x, rope):
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + A.attn_train(p["attn"], h, rope, qk_norm=cfg.qk_norm,
+                             q_chunk=cfg.attn_chunk_q)
+        return self._ffn(p, x)
+
+    def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, Vp) in f32: the training forward,
+        differentiable in ``params``.  With ``cfg.remat == "block"`` each
+        layer's activations are recomputed in the backward pass
+        (``checkpoint``), the counterpart of the reference's
+        ``jax.checkpoint`` over its scanned layer."""
+        cfg = self.cfg
+        S = tokens.shape[1]
+        rope = rope_angles(torch.arange(S, device=self.device), cfg.hd,
+                           cfg.rope_theta)
+        remat = cfg.remat != "none" and torch.is_grad_enabled()
+        x = self._embed(params, tokens)
+        for i in range(self.n_super):
+            p = _layer(params["layers"][0], i)
+            if remat:
+                x = checkpoint(self._train_block, p, x, rope,
+                               use_reentrant=False)
+            else:
+                x = self._train_block(p, x, rope)
+        return self._head(params, x)
+
+    def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch`` = {"tokens",
+        "labels"} (labels -1 are masked), in f32."""
+        logits = self.forward(params, batch["tokens"])
+        return softmax_cross_entropy(logits, batch["labels"], self.cfg.vocab)
 
     # ----------------------------------------------------------- serving --
     def cache_blocks(self, max_len: int) -> int:

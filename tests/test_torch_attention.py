@@ -56,6 +56,10 @@ def _close(got: torch.Tensor, want, name):
     # average all keys, as the reference's softmax does)
     (1, 4, 2, 37, 100, 32, True, "float32"),
     (1, 4, 2, 70, 30, 32, True, "float32"),
+    # the other dense configs' groups: smollm-360m (hd 64, G 3) and
+    # mistral-large-123b (G 12)
+    (1, 15, 5, 130, 130, 64, True, "bfloat16"),
+    (1, 24, 2, 70, 70, 128, True, "float32"),
 ])
 def test_flash_plain_matches_reference(B, H, KV, Sq, Skv, hd, causal, dt):
     rng = np.random.default_rng(B * 7 + Sq + Skv)
@@ -99,6 +103,11 @@ PAGED_SHAPES = [
     (2, 64, 2, 1, 4, 16, 64, "float32"),
     (2, 64, 2, 1, 4, 16, 65, "bfloat16"),
     (2, 64, 2, 2, 8, 32, 128, "float32"),
+    # the other dense configs' groups: smollm-360m (hd 64, G 3),
+    # mistral-large-123b (G 12) and the kernel's largest group, 16
+    (2, 64, 2, 5, 15, 64, 100, "bfloat16"),
+    (2, 64, 1, 8, 96, 128, 70, "float32"),
+    (2, 64, 2, 1, 16, 64, 65, "float32"),
 ]
 
 

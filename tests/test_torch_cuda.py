@@ -601,6 +601,13 @@ def _randn(rng, shape, dt):
     (1, 8, 1, 129, 300, 128, True),     # Sq < Skv
     (1, 4, 2, 300, 129, 128, True),     # Sq > Skv: rows with no visible key
     (1, 8, 1, 200, 70, 128, True),
+    # head dim 64 (smollm-360m: 15 heads over 5 kv heads, G = 3)
+    (1, 15, 5, 300, 300, 64, True),
+    (2, 15, 5, 1152, 1152, 64, True),
+    (2, 6, 2, 129, 129, 64, False),
+    (1, 8, 1, 65, 300, 64, True),
+    (1, 4, 2, 300, 129, 64, True),
+    (1, 24, 2, 257, 257, 64, True),     # G = 12
 ])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(B, H, KV, Sq, Skv, hd, causal,
@@ -639,7 +646,7 @@ def test_flash_attention_bf16_kernel_masks_to_the_key(Sq, Skv, causal):
     assert bool(((got - want).abs() <= 1e-4 + 2 ** -7 * want.abs()).all())
 
 
-@pytest.mark.parametrize("hd", [16, 128])
+@pytest.mark.parametrize("hd", [16, 64, 128])
 def test_flash_attention_bf16_kernel_reads_strided_views(hd):
     """The bf16 kernel maps q, k, v with their own strides: the model's
     (B, S, heads, hd) tensors seen through transpose(1, 2), and a k/v
@@ -659,7 +666,7 @@ def test_flash_attention_bf16_kernel_reads_strided_views(hd):
 
 def test_flash_attention_kernel_raises_on_unsupported_head_dim():
     require_cuda()
-    q = torch.zeros(1, 2, 8, 64, device="cuda")
+    q = torch.zeros(1, 2, 8, 96, device="cuda")
     before = flash_attention.launches
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :1], q[:, :1])
@@ -682,6 +689,17 @@ def test_flash_attention_kernel_raises_on_unsupported_head_dim():
     (2, 1024, 4, 8, 32, 128, 65),
     (2, 1024, 4, 8, 32, 128, 1167),     # the serve run's longest step
     (64, 256, 1, 8, 64, 128, 16384),    # 256 splits, G = 8: several waves
+    # head dim 64 and G = 3 (smollm-360m's decode shape)
+    (2, 1024, 4, 5, 15, 64, 1167),
+    (2, 64, 2, 5, 15, 64, 65),
+    (4, 128, 1, 2, 4, 64, 300),
+    # the G <= 16 instance: G = 12 (mistral-large-123b), 9, 16
+    (2, 1024, 4, 8, 96, 128, 1167),
+    (2, 1024, 1, 8, 96, 128, 1),
+    (2, 128, 2, 1, 9, 128, 200),
+    (2, 256, 2, 1, 16, 128, 300),
+    (4, 128, 1, 2, 32, 64, 257),
+    (2, 64, 2, 1, 12, 16, 100),
 ])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel_matches_plain(nb, tb, B, KV, H, hd, vl, dt):
@@ -700,6 +718,20 @@ def test_paged_attention_kernel_matches_plain(nb, tb, B, KV, H, hd, vl, dt):
         kc[vl // tb + 1:] = 999.0
         vc.view(nb * tb, B, KV, hd)[vl:] = float("nan")
         torch.testing.assert_close(paged_attention(q, kc, vc, vl), got)
+
+
+def test_paged_attention_kernel_raises_outside_its_instances():
+    """A head dim or a group size the kernel does not build raises; it
+    never turns to the plain version."""
+    require_cuda()
+    kc = torch.zeros(1, 64, 1, 1, 96, device="cuda")
+    before = paged_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention(torch.zeros(1, 2, 96, device="cuda"), kc, kc, 8)
+    kc = torch.zeros(1, 64, 1, 1, 128, device="cuda")
+    with pytest.raises(ValueError, match="at most 16"):
+        paged_attention(torch.zeros(1, 17, 128, device="cuda"), kc, kc, 8)
+    assert paged_attention.launches == before
 
 
 @pytest.mark.parametrize("chunk", [8, 200])
@@ -740,3 +772,36 @@ def test_serve_run_on_cuda_matches_cpu():
     assert sum(hits for _r, _o, hits in gpu["requests"]) >= 2
     cpu_params = tree_map(lambda t: t.cpu(), params)
     assert port_serve_run(build(cfg, device="cpu"), cpu_params) == gpu
+
+
+def test_train_step_on_cuda_matches_cpu():
+    """One reduced smollm-360m train step (f32, AdamW) on the card from the
+    CPU's parameters, with 1 and with 4 microbatches: the loss and the new
+    parameters within the CPU parity bounds of tests/test_torch_train.py."""
+    require_cuda()
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs.base import get, reduced
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig, Optimizer, tree_leaves
+    from repro_torch.train import make_train_step
+    cfg = reduced(get("smollm-360m"))
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for n_micro in (1, 4):
+            model = build(cfg, device=dev)
+            params = tree_map(lambda t: t.to(dev),
+                              build(cfg, device="cpu").init(seed=0))
+            opt = Optimizer(OptConfig(lr=1e-3))
+            batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+            state, metrics = make_train_step(model, opt, n_micro=n_micro)(
+                {"params": params, "opt": opt.init(params)}, batch)
+            out[dev, n_micro] = (float(metrics["loss"]), [
+                t.cpu() for t in tree_leaves(state["params"])])
+    for n_micro in (1, 4):
+        (lg, pg), (lc, pc) = out["cuda", n_micro], out["cpu", n_micro]
+        assert abs(lg - lc) <= 2e-5 * abs(lc)
+        for a, b in zip(pg, pc):
+            assert float((a - b).abs().max()) <= \
+                1e-4 * float(b.abs().max()) + 1e-6

@@ -1,6 +1,8 @@
 """The port's dense model and serve engine held against the JAX package's
 at reduced size (``reduced(llama3_8b)``: 2 layers, d_model 64, 4 heads over
-1 KV head, head_dim 16, vocab 128).
+1 KV head, head_dim 16, vocab 128), and the four other dense decoders'
+prefill and decode at their reduced sizes: smollm-360m (tied embeddings),
+qwen3-32b (qk-norm), mistral-large-123b and chameleon-34b (family ``vlm``).
 
 The port runs the JAX model's own parameters (``params_from_jax``).  The
 JAX side uses ``use_kernels=False`` (its flash kernel does not run on the
@@ -34,19 +36,34 @@ from _torch_parity import serve_scenario
 F32 = 2e-5
 
 
-def _ref_model(dtype="float32", seed=0):
-    cfg = dataclasses.replace(RC.reduced(RC.get("llama3-8b")), dtype=dtype)
+DENSE = ["llama3-8b", "smollm-360m", "qwen3-32b", "mistral-large-123b",
+         "chameleon-34b"]
+
+
+def _ref_model(dtype="float32", seed=0, arch="llama3-8b"):
+    cfg = dataclasses.replace(RC.reduced(RC.get(arch)), dtype=dtype)
     m = ref_build(cfg, make_host_mesh((1, 1), ("data", "model")),
                   use_kernels=False)
     return m, m.init(jax.random.key(seed))
 
 
+_PAIRS = {}
+
+
+def _pair(arch):
+    """(reference model, its f32 parameters, port model, the same
+    parameters as the port's tensors) at the reduced size of ``arch``."""
+    if arch not in _PAIRS:
+        m, params = _ref_model(arch=arch)
+        port = build(PC.reduced(PC.get(arch)), device="cpu")
+        _PAIRS[arch] = (m, params, port, params_from_jax(
+            jax.tree.map(np.asarray, params), device="cpu"))
+    return _PAIRS[arch]
+
+
 @pytest.fixture(scope="module")
 def f32_pair():
-    m, params = _ref_model()
-    port = build(PC.reduced(PC.get("llama3-8b")), device="cpu")
-    return m, params, port, params_from_jax(jax.tree.map(np.asarray, params),
-                                            device="cpu")
+    return _pair("llama3-8b")
 
 
 def _leaves(tree, prefix=""):
@@ -61,12 +78,27 @@ def _leaves(tree, prefix=""):
 
 
 # ------------------------------------------------------------- parameters
-def test_configs_match_reference():
-    assert dataclasses.asdict(PC.get("llama3-8b")) == \
-        dataclasses.asdict(RC.get("llama3-8b"))
-    assert dataclasses.asdict(PC.reduced(PC.get("llama3-8b"))) == \
-        dataclasses.asdict(RC.reduced(RC.get("llama3-8b")))
-    assert PC.get("llama3-8b").n_params() == RC.get("llama3-8b").n_params()
+@pytest.mark.parametrize("arch", DENSE + ["fusee_paper"])
+def test_configs_match_reference(arch):
+    """Every ported config: the reference's fields, parameter count,
+    reduced twin and padded vocabulary."""
+    if arch == "fusee_paper":
+        from repro.configs import FuseePaperConfig as RefPaper
+        from repro_torch.configs import FuseePaperConfig
+        assert dataclasses.asdict(FuseePaperConfig()) == \
+            dataclasses.asdict(RefPaper())
+        return
+    assert arch in PC.all_archs()
+    assert dataclasses.asdict(PC.get(arch)) == dataclasses.asdict(RC.get(arch))
+    assert dataclasses.asdict(PC.reduced(PC.get(arch))) == \
+        dataclasses.asdict(RC.reduced(RC.get(arch)))
+    assert PC.get(arch).n_params() == RC.get(arch).n_params()
+    assert PC.reduced(PC.get(arch)).n_params() == \
+        RC.reduced(RC.get(arch)).n_params()
+    ref = ref_build(RC.get(arch), make_host_mesh((1, 1), ("data", "model")))
+    assert Model(PC.get(arch), device="cpu").vocab_p == ref.vocab_p
+    if arch != "llama3-8b":
+        return
     moe = dict(family="moe", n_layers=4)
     port_moe = dataclasses.replace(
         PC.reduced(PC.get("llama3-8b")), **moe,
@@ -96,6 +128,22 @@ def test_params_from_jax_bit_identical(dtype):
                                      else torch.int32).numpy()), name
 
 
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-32b"])
+def test_params_from_jax_handles_tied_and_qk_norm_trees(arch):
+    """smollm's tied tree (no ``lm_head``) and qwen3's qk-norm tree
+    (``q_norm`` / ``k_norm`` per layer) cross bit for bit, and the port's
+    own init builds the same tree."""
+    m, params, port, tp = _pair(arch)
+    ref_leaves, port_leaves = dict(_leaves(params)), dict(_leaves(tp))
+    assert ref_leaves.keys() == port_leaves.keys()
+    assert ("/lm_head" in ref_leaves) == (arch != "smollm-360m")
+    assert ("/layers/0/attn/q_norm" in ref_leaves) == (arch == "qwen3-32b")
+    for name, a in ref_leaves.items():
+        assert np.array_equal(np.asarray(a), port_leaves[name].numpy()), name
+    assert {k: tuple(v.shape) for k, v in _leaves(port.init(seed=1))} == \
+        {k: v.shape for k, v in ref_leaves.items()}
+
+
 def test_port_init_has_reference_tree():
     """The port's own random init: the reference's tree, shapes and dtype,
     a pure function of the seed."""
@@ -115,8 +163,9 @@ def _prompt(B=2, S=80, seed=1):
         .astype(np.int32)
 
 
-def test_prefill_logits_and_cache_match_reference(f32_pair):
-    m, params, port, tp = f32_pair
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_logits_and_cache_match_reference(arch):
+    m, params, port, tp = _pair(arch)
     toks = _prompt()
     before = flash_attention.launches
     lj, cj = m.prefill(params, jnp.asarray(toks), max_len=128)
@@ -131,8 +180,9 @@ def test_prefill_logits_and_cache_match_reference(f32_pair):
                                    rtol=F32)
 
 
-def test_six_decode_steps_match_reference(f32_pair):
-    m, params, port, tp = f32_pair
+@pytest.mark.parametrize("arch", DENSE)
+def test_six_decode_steps_match_reference(arch):
+    m, params, port, tp = _pair(arch)
     toks = _prompt(seed=2)
     _, cj = m.prefill(params, jnp.asarray(toks), max_len=128)
     _, ct = port.prefill(tp, torch.from_numpy(toks).long(), max_len=128)
@@ -150,11 +200,23 @@ def test_six_decode_steps_match_reference(f32_pair):
 
 
 def test_model_rejects_unported_families_and_missing_gpu():
-    moe = dataclasses.replace(
-        PC.reduced(PC.get("llama3-8b")), family="moe",
-        moe=PC.MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
-    with pytest.raises(NotImplementedError, match="A9"):
-        Model(moe, device="cpu")
+    """The families still missing (A9.2) raise: MoE, the recurrent ssm and
+    hybrid stacks, and the encoder-decoder; vlm runs the dense stack."""
+    base = PC.reduced(PC.get("llama3-8b"))
+    missing = [
+        dataclasses.replace(base, family="moe", moe=PC.MoEConfig(
+            n_experts=4, top_k=2, d_ff_expert=32)),
+        dataclasses.replace(base, family="ssm", ssm=PC.SSMConfig()),
+        dataclasses.replace(base, family="hybrid", ssm=PC.SSMConfig(),
+                            attn_every=2),
+        dataclasses.replace(base, family="audio", enc_dec=True,
+                            n_enc_layers=2),
+    ]
+    for cfg in missing:
+        with pytest.raises(NotImplementedError, match="A9.2"):
+            Model(cfg, device="cpu")
+    assert Model(PC.reduced(PC.get("chameleon-34b")), device="cpu").n_super \
+        == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             build(PC.reduced(PC.get("llama3-8b")))
