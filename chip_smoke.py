@@ -122,11 +122,25 @@ and then:
    and one ``paged_attention`` launch per layer per decode step, second-
    wave prefix hits); runs qwen3-32b, chameleon-34b (family ``vlm``) and
    mistral-large-123b (G 12) at full width with ``MODELS_CUT`` layers
-   through one 4 x 1152 prefill and 4 decode steps of ``Model``; holds both
-   attention kernels against their plain versions on each run's largest
-   inputs and times them beside SDPA; and runs each of the four configs at
-   reduced size in f32 on ``cuda`` and on ``cpu`` (equal prefill logits
-   and decode tokens);
+   through one 4 x 1152 prefill and 4 decode steps of ``Model``
+   (``model_run``, as step 11b); holds both attention kernels against
+   their plain versions on each run's inputs and times them beside SDPA;
+   and runs each of the four configs at reduced size in f32 on ``cuda``
+   and on ``cpu`` (``reduced_parity``, as step 11b: equal prefill logits
+   and decode tokens, one train step);
+11b. ``[families]``: the other model families at full width with bf16
+   weights from ``--seed`` (``family_cuts``: xlstm-350m and
+   whisper-medium whole, kimi-k2-1t-a32b and arctic-480b cut to 1 layer,
+   jamba-1.5-large-398b to 2, each cut printed with its reason), each
+   through one 4 x 1152 prefill (whisper: 4 x 128 tokens over 4 x 1500
+   frames) and 4 decode steps of ``Model``, jamba first behind
+   ``ServeEngine`` with step 9's traffic; the launch counts set to 0
+   before each run and read after (``model_launches``); every distinct
+   ``flash_attention`` input shape and the longest ``paged_attention``
+   step held to their plain versions and timed beside SDPA; the sLSTM
+   backward (``SLSTMScan``) against plain autograd at xlstm's width; the
+   five configs at reduced size in f32 on ``cuda`` and on ``cpu``
+   (logits, tokens, one train step, the MoE kept sets);
 12. ``[train]``: trains smollm-360m at full width and depth for 30 steps
    (bf16, AdamW, remat per layer, batch 8 x seq 1024; the mean loss of the
    last 5 steps at least 0.2 below the first 5's; ms per step, tokens/s,
@@ -138,8 +152,9 @@ and then:
    against cpu, and the fault drill.  No hand-
    written kernel launches on the training path.
 
-``--only models`` / ``--only train`` is a development aid for iterating on
-those phases: it builds the kernels, runs just those phases and prints
+``--only models`` / ``families`` / ``train`` is a development aid for
+iterating on those phases: it builds the kernels, runs just those phases
+and prints
 neither the kernels line nor the result line; the check is the run with no
 arguments.  Each kernel is timed per call (``time_ms``) and on the device
 (``device_time_ms``), and so is its library yardstick where one PyTorch call
@@ -1688,6 +1703,7 @@ class ServeCapture:
         self.A, self.P = A, P
         self.orig = (A.flash_attention, A.paged_attention, P.race_lookup)
         self.flash = self.paged = None
+        self.flash_shapes = {}      # (q shape, k shape, causal): inputs
         self.races = []
         self.calls = {"flash_attention": 0, "paged_attention": 0,
                       "race_lookup": 0}
@@ -1696,6 +1712,8 @@ class ServeCapture:
             self.calls["flash_attention"] += 1
             if self.flash is None or q.numel() > self.flash[0].numel():
                 self.flash = (q, k, v, causal)
+            self.flash_shapes.setdefault(
+                (tuple(q.shape), tuple(k.shape), causal), (q, k, v, causal))
             return self.orig[0](q, k, v, causal=causal)
 
         def paged_attention(q, kc, vc, valid_len):
@@ -1740,12 +1758,14 @@ def phase_serve(args):
     return capture, launches
 
 
-def serve_arch(args, arch: str, tag: str):
-    """``arch`` at full width and depth, bf16 weights drawn from
-    ``--seed``, serves 8 requests (a shared 1024-token system prompt plus
-    128 tokens each, 16 new each, max_batch 4) through ``ServeEngine`` over
-    the FUSEE prefix-cache pool, with the launch counts set to 0 just
-    before the run and read just after."""
+def serve_arch(args, arch, tag: str, n_expected=None):
+    """``arch`` (an id: full width and depth; or a config), bf16 weights
+    drawn from ``--seed``, serves 8 requests (a shared 1024-token system
+    prompt plus 128 tokens each, 16 new each, max_batch 4) through
+    ``ServeEngine`` over the FUSEE prefix-cache pool, with the launch
+    counts set to 0 just before the run and read just after.  The tree's
+    parameter count must equal ``n_expected`` (default: the config's
+    formula at the padded vocabulary)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1754,15 +1774,18 @@ def serve_arch(args, arch: str, tag: str):
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.models import build
     from repro_torch.serving import PoolConfig, Request, ServeEngine
-    cfg = get(arch)
+    cfg = get(arch) if isinstance(arch, str) else arch
+    arch = cfg.arch_id
     model = build(cfg, device="cuda")
+    n_attn = model.n_super * sum(s.mixer == "attn" for s in model.specs)
     t0 = time.perf_counter()
     params = model.init(seed=args.seed)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     padded = dataclasses.replace(cfg, vocab=model.vocab_p)   # = cfg here
-    check(n_params == padded.n_params(), f"{arch} parameter count")
+    check(n_params == (n_expected or padded.n_params()),
+          f"{arch} parameter count")
     log(f"{tag} {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads, head_dim "
         f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} "
@@ -1820,12 +1843,12 @@ def serve_arch(args, arch: str, tag: str):
     check(eng.pool.check_replicas_converged(), "serve: replicas diverged")
     check((n_pre, n_dec) == (2, 30), f"serve: {n_pre} prefills and {n_dec} "
           "decode steps, expected 2 and 30 with this traffic")
-    check(launches["flash_attention"] == cfg.n_layers * n_pre,
+    check(launches["flash_attention"] == n_attn * n_pre,
           f"serve: flash_attention launched {launches['flash_attention']} "
-          f"times for {n_pre} prefills of {cfg.n_layers} layers")
-    check(launches["paged_attention"] == cfg.n_layers * n_dec,
+          f"times for {n_pre} prefills of {n_attn} attention layers")
+    check(launches["paged_attention"] == n_attn * n_dec,
           f"serve: paged_attention launched {launches['paged_attention']} "
-          f"times for {n_dec} decode steps of {cfg.n_layers} layers")
+          f"times for {n_dec} decode steps of {n_attn} attention layers")
     check(launches["race_lookup"] > 0, "serve: no race_lookup launch")
     check(all(capture.calls[k] == launches[k] for k in capture.calls),
           f"serve: a kernel wrapper was called without launching: "
@@ -1979,12 +2002,17 @@ def attn_rows(capture, launches, tag: str, run: str):
     largest inputs a serve run gave them (``capture``) and timed there
     beside their byte/FLOP bound and ``scaled_dot_product_attention``:
     their rows of the kernels line."""
-    import torch
-    from repro_torch.kernels import (flash_attention, flash_attention_plain,
-                                     paged_attention, paged_attention_plain)
-    from repro_torch.kernels.paged_attention.ops import split_plan
-    rows = []
-    q, k, v, causal = capture.flash
+    return [flash_row(capture.flash, launches, tag, f"{run}'s largest "
+                      "prefill", run),
+            paged_row(capture.paged, launches, tag, run)]
+
+
+def flash_row(inputs, launches, tag: str, where: str, run: str):
+    """``flash_attention`` on ``inputs`` = (q, k, v, causal): held against
+    its plain version, timed beside its bound and SDPA; its kernels-line
+    row."""
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    q, k, v, causal = inputs
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     out, used, err, typical = check_attn(
@@ -2004,7 +2032,7 @@ def attn_rows(capture, launches, tag: str, run: str):
     flops = 4 * B * H * hd * pairs
     nbytes = q.element_size() * (2 * B * H * Sq * hd + 2 * B * KV * Skv * hd)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / MEM_BW_BYTES_PER_S
-    rows.append(dict(
+    row = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:70",
@@ -2012,24 +2040,33 @@ def attn_rows(capture, launches, tag: str, run: str):
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=1e3 * max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=lib_ms, library_device_ms=lib_dev_ms))
-    log(f"{tag} flash_attention at {run}'s largest prefill: q "
+        library_ms=lib_ms, library_device_ms=lib_dev_ms)
+    log(f"{tag} flash_attention at {where}: q "
         f"{tuple(q.shape)}, k/v {tuple(k.shape)}, {q.dtype}, causal "
         f"{causal}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
         f"device), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
         f"{lib_ms:.4f} ms ({lib_dev_ms:.4f} ms on the device; max abs diff "
         f"{lib_err:.3g}); bound "
-        f"{rows[-1]['bound_ms']:.6f} ms ({flops} FLOP at 989 TFLOP/s bf16, "
+        f"{row['bound_ms']:.6f} ms ({flops} FLOP at 989 TFLOP/s bf16, "
         f"{nbytes} B at 3.35 TB/s); max abs err {err:.3g} (mean |ref| "
         f"{typical:.3g}, at most {used:.3f} of the bound)")
+    return row
 
-    q, kc, vc, vl = capture.paged
+
+def paged_row(inputs, launches, tag: str, run: str):
+    """``paged_attention`` on ``inputs`` = (q, kc, vc, valid_len), the
+    longest decode step of a run: held against its plain version, timed
+    with its pages cold in L2 beside its bound and SDPA; its kernels-line
+    row."""
+    from repro_torch.kernels import paged_attention, paged_attention_plain
+    from repro_torch.kernels.paged_attention.ops import split_plan
+    q, kc, vc, vl = inputs
     nb, tb, B, KV, hd = kc.shape
     H = q.shape[1]
     out, used, err, typical = check_attn(
         paged_attention, paged_attention_plain, q, kc, vc, vl,
         what=f"paged_attention on {run}'s inputs")
-    # a decode step's 32 layers each read their own pages, so every call
+    # a decode step's layers each read their own pages, so every call
     # finds its pages cold in L2: time over copies that overflow its 50 MB
     pages = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(5)]
     views = [tuple(x.view(nb * tb, B, KV, hd)[:vl].permute(1, 2, 0, 3)
@@ -2053,7 +2090,7 @@ def attn_rows(capture, launches, tag: str, run: str):
     nbytes = q.element_size() * (2 * B * H * hd + 2 * B * KV * vl * hd)
     flops = 4 * B * H * hd * vl
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / MEM_BW_BYTES_PER_S
-    rows.append(dict(
+    row = dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:58",
@@ -2061,7 +2098,7 @@ def attn_rows(capture, launches, tag: str, run: str):
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=1e3 * max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=lib_ms, library_device_ms=lib_dev_ms))
+        library_ms=lib_ms, library_device_ms=lib_dev_ms)
     splits, chunk = split_plan(vl)
     log(f"{tag} paged_attention at {run}'s longest decode step: "
         f"q {tuple(q.shape)}, pages {tuple(kc.shape)}, {q.dtype}, valid_len "
@@ -2070,10 +2107,10 @@ def attn_rows(capture, launches, tag: str, run: str):
         f"call ({dev_ms:.4f} ms on the device), plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms "
         f"on the device; max abs diff {lib_err:.3g}); byte bound "
-        f"{rows[-1]['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s); max abs "
+        f"{row['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s); max abs "
         f"err {err:.3g} (mean |ref| {typical:.3g}, at most {used:.3f} of the "
         f"bound)")
-    return rows
+    return row
 
 
 def phase_serve_parity(seed: int):
@@ -2104,6 +2141,232 @@ def phase_serve_parity(seed: int):
         f"{gpu['requests']}; cuda launches {launches}")
 
 
+# ----------------------------------- full-width model runs, reduced parity
+def model_params(args, cfg, tag: str, cut: str, why: str):
+    """The model of ``cfg`` on the card with bf16 weights from ``--seed``;
+    its tree's parameter count against the formula (dense and MoE) or
+    ``param_stats`` (mamba, xlstm and the encoder-decoder, whose trees the
+    reference's formula does not count)."""
+    import dataclasses
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.models import build, param_stats
+    model = build(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    formula = dataclasses.replace(cfg, vocab=model.vocab_p).n_params()
+    by_tree = cfg.family in ("ssm", "hybrid") or cfg.enc_dec
+    want = param_stats(model)["total"] if by_tree else formula
+    check(n == want, f"{cfg.arch_id}: {n} parameters, expected {want}")
+    log(f"{tag} {cfg.arch_id}: d_model {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} kv heads, head_dim {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, family {cfg.family}, qk_norm {cfg.qk_norm}, moe "
+        f"{cfg.moe}, ssm {cfg.ssm}, enc_dec {cfg.enc_dec} ("
+        f"{cfg.n_enc_layers} encoder layers, enc_seq {cfg.enc_seq}); "
+        f"superblock {[(s.mixer, s.ffn) for s in model.specs]} x "
+        f"{model.n_super}; depth cut: {cut} ({why}); {n} parameters = "
+        f"{'param_stats' if by_tree else 'the formula'} (formula {formula})"
+        f", {n_bytes} bytes of {model.dtype}, drawn from seed {args.seed} "
+        f"in {init_s:.1f} s (peak device memory while drawn "
+        f"{init_peak / 2**30:.2f} GiB)")
+    return model, params
+
+
+def model_launches(model, steps: int):
+    """The attention launches one prefill and ``steps`` decode steps of
+    ``model`` make: ``flash_attention`` once a causal attention layer, an
+    encoder layer and a cross-attention a prefill, and once a
+    cross-attention a step; ``paged_attention`` once an attention layer a
+    step.  Returns them with the counts of attention and cross layers."""
+    n_attn = model.n_super * sum(s.mixer == "attn" for s in model.specs)
+    n_cross = model.n_super * sum(s.cross for s in model.specs)
+    flash = n_attn + n_cross + (model.cfg.n_enc_layers
+                                if model.cfg.enc_dec else 0)
+    return ({"flash_attention": flash + steps * n_cross,
+             "paged_attention": steps * n_attn}, n_attn, n_cross)
+
+
+def model_run(args, model, params, tag: str, prompt_len: int = 1152):
+    """One 4 x ``prompt_len`` prefill (after a warm-up one) and 4 greedy
+    decode steps through ``Model``, an encoder-decoder's frames (4 x
+    enc_seq x d_model, bf16, from ``--seed``) encoded in the prefill; the
+    launch counts set to 0 just before and read just after.  Checks each
+    kernel's count, finite logits and the cache length.  Returns the
+    capture and the counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import KERNELS, reset_launches
+    cfg = model.cfg
+    rng = np.random.default_rng(args.seed)
+    toks = torch.as_tensor(np.stack(serve_prompts(rng, cfg.vocab)[:4])
+                           [:, :prompt_len], dtype=torch.int64, device="cuda")
+    frames = None
+    if cfg.enc_dec:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        frames = torch.randn(4, cfg.enc_seq, cfg.d_model, generator=gen,
+                             device="cuda").to(model.dtype)
+    _, cache = model.prefill(params, toks, frames=frames, max_len=2048)
+    del cache
+    want, n_attn, n_cross = model_launches(model, steps=4)
+    capture = ServeCapture()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        t1 = time.perf_counter()
+        logits, cache = model.prefill(params, toks, frames=frames,
+                                      max_len=2048)
+        torch.cuda.synchronize()
+        pre_ms = 1e3 * (time.perf_counter() - t1)
+        out, dec_ms = [], []
+        for _ in range(4):
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(tok)
+            t1 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, tok)
+            torch.cuda.synchronize()
+            dec_ms.append(1e3 * (time.perf_counter() - t1))
+    finally:
+        capture.close()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    flash = want["flash_attention"] - 4 * n_cross
+    check(all(launches[k] == v for k, v in want.items()),
+          f"{cfg.arch_id}: launches {launches}, expected {want} for one "
+          f"prefill and 4 decode steps")
+    check(all(capture.calls[k] == launches[k] for k in want),
+          f"{cfg.arch_id}: a kernel wrapper was called without launching")
+    check(bool(torch.isfinite(logits).all()) and
+          int(cache["length"]) == toks.shape[1] + 4,
+          f"{cfg.arch_id}: non-finite logits or a wrong cache length")
+    tokens = 4 * (toks.shape[1] + 4)
+    log(f"{tag} {cfg.arch_id}: one 4 x {toks.shape[1]} prefill "
+        f"{pre_ms:.2f} ms, 4 decode steps {', '.join(f'{t:.2f}' for t in dec_ms)}"
+        f" ms (mean {np.mean(dec_ms):.2f}); {tokens} tokens; greedy tokens "
+        f"{torch.cat(out, 1).tolist()}; launches {launches} (flash: "
+        f"{flash} a prefill = {n_attn} causal"
+        + (f" + {cfg.n_enc_layers} encoder + {n_cross} cross" if cfg.enc_dec
+           else "") + f", {n_cross} a step; paged: {n_attn} a step); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return capture, launches
+
+
+def model_attn_checks(capture, launches, tag: str, run: str):
+    """Every distinct flash_attention input shape of the run and its
+    longest paged_attention step held to ``attn_bound`` and timed beside
+    SDPA."""
+    for (qs, ks, causal), inputs in sorted(capture.flash_shapes.items(),
+                                           key=lambda x: str(x[0])):
+        flash_row(inputs, launches, tag, f"{run}'s q {qs} over k/v {ks}, "
+                  f"causal {causal}", run)
+    if capture.paged is not None:
+        paged_row(capture.paged, launches, tag, run)
+
+
+def reduced_parity(arch: str, seed: int, tag: str):
+    """``arch`` at reduced size in f32 on cuda and on cpu from the same
+    weights: prefill logits and 4 greedy decode steps within 2e-5 + 2e-5 x
+    |cpu| (reduced jamba: ``JAMBA_BOUND``) with equal tokens; one
+    ``make_train_step`` step's loss and gradient norm within 2e-5
+    (jamba: ``JAMBA_BOUND``) relative and its new parameters within 1e-4 x
+    max|p| + 1e-6; every MoE layer's kept (token, slot) set equal on both
+    devices."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+    import repro_torch.models.ffn as F
+    from repro_torch.configs import get, reduced
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig, Optimizer, tree_leaves
+    from repro_torch.train import make_train_step
+    cfg = reduced(get(arch))
+    bound = JAMBA_BOUND if cfg.family == "hybrid" else 2e-5
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 80)))
+    frames = (torch.as_tensor(rng.standard_normal(
+        (2, cfg.enc_seq, cfg.d_model)), dtype=torch.float32)
+        if cfg.enc_dec else None)
+    params = build(cfg, device="cpu").init(seed=seed)
+    opt = Optimizer(OptConfig(lr=1e-3))
+    route, runs = F.moe_route, {}
+
+    def spy(ctx, router, xt):
+        r = route(ctx, router, xt)
+        kept[-1].append(tuple(x.cpu() for x in (r.idx, r.pos, r.keep)))
+        return r
+
+    before = {k.__name__: k.launches for k in KERNELS}
+    F.moe_route = spy
+    try:
+        for dev in ("cuda", "cpu"):
+            kept = [[]]
+            model = build(cfg, device=dev)
+            p = tree_map(lambda t: t.to(dev), params)
+            fr = None if frames is None else frames.to(dev)
+            logits, cache = model.prefill(p, toks.to(dev), frames=fr,
+                                          max_len=128)
+            seq, out = [logits.cpu()], []
+            for _ in range(4):
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+                out.append(tok.cpu())
+                logits, cache = model.decode_step(p, cache, tok)
+                seq.append(logits.cpu())
+            if dev == "cuda":
+                launches = {k.__name__: k.launches - before[k.__name__]
+                            for k in KERNELS}
+                want = model_launches(model, steps=4)[0]
+                check(all(launches[k] == v for k, v in want.items()),
+                      f"reduced {arch} on cuda: launches {launches}, "
+                      f"expected {want}")
+            batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+            if fr is not None:
+                batch["frames"] = fr
+            state, met = make_train_step(model, opt)(
+                {"params": p, "opt": opt.init(p)}, batch)
+            runs[dev] = (seq, torch.cat(out, 1), kept[0],
+                         {k: float(met[k]) for k in ("loss", "grad_norm")},
+                         [t.cpu() for t in tree_leaves(state["params"])])
+    finally:
+        F.moe_route = route
+    (sa, ta, ka, ma, pa), (sb, tb, kb, mb, pb) = runs["cuda"], runs["cpu"]
+    check(torch.equal(ta, tb), f"reduced {arch}: tokens differ between cuda "
+          f"and cpu")
+    worst = 0.0
+    for a, b in zip(sa, sb):
+        used, _, _ = check_close(a, b, bound + bound * b.abs(),
+                                 f"reduced {arch} logits, cuda vs cpu")
+        worst = max(worst, used)
+    check(len(ka) == len(kb) and all(
+        all(torch.equal(x, y) for x, y in zip(u, v)) for u, v in zip(ka, kb)),
+        f"reduced {arch}: MoE routing (expert, slot place, kept) differs "
+        f"between cuda and cpu")
+    m_used = max(abs(ma[k] - mb[k]) / (bound * abs(mb[k])) for k in ma)
+    check(m_used <= 1.0, f"reduced {arch}: train step {ma} vs {mb}")
+    p_used = max(float((a - b).abs().max()) / (1e-4 * float(b.abs().max())
+                                               + 1e-6)
+                 for a, b in zip(pa, pb))
+    check(p_used <= 1.0, f"reduced {arch}: new parameters cuda vs cpu "
+          f"{p_used:.3f} of the bound")
+    dropped = sum(int((~k[2]).sum()) for k in ka)
+    log(f"{tag} reduced {arch} (f32, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv heads, "
+        f"head_dim {cfg.hd}): prefill logits and 4 decode steps equal on cuda "
+        f"and cpu within {bound} + {bound} x |cpu| (at most {worst:.3f} of "
+        f"the bound), tokens {ta.tolist()}; "
+        + (f"{len(ka)} MoE routings equal ({dropped} (token, slot) pairs "
+           f"dropped by capacity), " if ka else "")
+        + f"train step loss {ma['loss']:.7f} / {mb['loss']:.7f}, grad norm "
+        f"{ma['grad_norm']:.7f} / {mb['grad_norm']:.7f} (at most "
+        f"{m_used:.3f} of {bound} relative), new parameters at most "
+        f"{p_used:.4f} of 1e-4 x max|p| + 1e-6; cuda launches {launches}")
+
+
 # ------------------------------------------------- the other dense decoders
 MODELS_CUT = 2          # layers of qwen3-32b, chameleon-34b, mistral-large
 
@@ -2113,17 +2376,13 @@ def phase_models(args):
     phase's traffic through ``ServeEngine`` (head dim 64, G = 3); (b)
     qwen3-32b, chameleon-34b and mistral-large-123b at full width and
     ``MODELS_CUT`` layers run a 4 x 1152 prefill and 4 decode steps through
-    ``Model``; (c) the four configs at reduced size in f32 on cuda and on
-    cpu from the same weights.  Both attention kernels are held against
-    their plain versions on the largest inputs of each run and timed
-    beside SDPA."""
+    ``Model`` (``model_run``); (c) the four configs at reduced size in f32
+    on cuda and on cpu from the same weights (``reduced_parity``).  Both
+    attention kernels are held against their plain versions on the inputs
+    of each run and timed beside SDPA."""
     import dataclasses
-    import numpy as np
     import torch
-    from torch.utils._pytree import tree_leaves
     from repro_torch.configs import get
-    from repro_torch.kernels import KERNELS, reset_launches
-    from repro_torch.models import build
     t_phase = time.perf_counter()
     eng, model, params, prompts, capture, launches = serve_arch(
         args, "smollm-360m", "[models]")
@@ -2136,112 +2395,147 @@ def phase_models(args):
     for arch in ("qwen3-32b", "chameleon-34b", "mistral-large-123b"):
         t0 = time.perf_counter()
         full = get(arch)
-        cfg = dataclasses.replace(full, n_layers=MODELS_CUT)
-        model = build(cfg, device="cuda")
-        params = model.init(seed=args.seed)
-        n_params = sum(t.numel() for t in tree_leaves(params))
-        check(n_params == dataclasses.replace(
-            cfg, vocab=model.vocab_p).n_params(), f"{arch} parameter count")
-        rng = np.random.default_rng(args.seed)
-        toks = torch.as_tensor(np.stack(serve_prompts(rng, cfg.vocab)[:4]),
-                               dtype=torch.int64, device="cuda")
-        _, cache = model.prefill(params, toks, max_len=2048)  # warm-up
-        del cache
-        capture = ServeCapture()
-        reset_launches()
-        try:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            logits, cache = model.prefill(params, toks, max_len=2048)
-            torch.cuda.synchronize()
-            pre_ms = 1e3 * (time.perf_counter() - t1)
-            out, dec_ms = [], []
-            for _ in range(4):
-                tok = logits[:, -1].argmax(-1, keepdim=True)
-                out.append(tok)
-                t1 = time.perf_counter()
-                logits, cache = model.decode_step(params, cache, tok)
-                torch.cuda.synchronize()
-                dec_ms.append(1e3 * (time.perf_counter() - t1))
-        finally:
-            capture.close()
-        launches = {k.__name__: k.launches for k in KERNELS}
-        check(launches["flash_attention"] == cfg.n_layers and
-              launches["paged_attention"] == 4 * cfg.n_layers,
-              f"{arch}: launches {launches} for one prefill and 4 decode "
-              f"steps of {cfg.n_layers} layers")
-        check(bool(torch.isfinite(logits).all()) and
-              int(cache["length"]) == toks.shape[1] + 4,
-              f"{arch}: non-finite logits or a wrong cache length")
-        words = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-        log(f"[models] {arch}: full width (d_model {cfg.d_model}, "
-            f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads, head_dim "
-            f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, qk_norm "
-            f"{cfg.qk_norm}, family {cfg.family}), depth cut from "
-            f"{full.n_layers} to {cfg.n_layers} layers (the full model's "
-            f"bf16 weights, {2 * full.n_params() / 1e9:.1f} GB, would not "
-            f"leave room on the card; layers repeat, so {cfg.n_layers} cross "
-            f"every code path); {n_params} parameters, {words} bytes; one "
-            f"4 x 1152 prefill {pre_ms:.2f} ms, 4 decode steps "
-            f"{', '.join(f'{t:.2f}' for t in dec_ms)} ms; tokens "
-            f"{torch.cat(out, 1).tolist()}; launches {launches}")
-        attn_rows(capture, launches, f"[models] {arch}:", f"the {arch} run")
-        del model, params, cache, capture, logits
+        model, params = model_params(
+            args, dataclasses.replace(full, n_layers=MODELS_CUT), "[models]",
+            f"{full.n_layers} -> {MODELS_CUT} layers",
+            f"the full model's bf16 weights, {2 * full.n_params() / 1e9:.1f} "
+            f"GB, would not leave room on the card; layers repeat, so "
+            f"{MODELS_CUT} cross every code path")
+        capture, launches = model_run(args, model, params, "[models]")
+        model_attn_checks(capture, launches, "[models]", f"the {arch} run")
+        del model, params, capture
         torch.cuda.empty_cache()
         log(f"[models] {arch}: {time.perf_counter() - t0:.1f} s")
 
     for arch in ("smollm-360m", "qwen3-32b", "mistral-large-123b",
                  "chameleon-34b"):
-        models_reduced_parity(arch, args.seed)
+        reduced_parity(arch, args.seed, "[models]")
     log(f"[models] phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def models_reduced_parity(arch: str, seed: int):
-    """``arch`` at reduced size in f32 on cuda and on cpu from the same
-    weights: prefill logits, then 4 greedy decode steps, equal within the
-    CPU tests' f32 bound (2e-5 + 2e-5 x |cpu|) and with equal tokens."""
-    import numpy as np
+# ------------------------------------------------ the other model families
+JAMBA_CUT = dict(n_layers=2, attn_every=2, attn_phase=0)
+JAMBA_WHY = ("the pattern of its layers 4 and 5 (attention + dense FFN, "
+             "then mamba + MoE); its 8-layer period holds 4 MoE FFNs, "
+             "77.3 GB of bf16 experts, which do not fit the card beside "
+             "the rest")
+JAMBA_BOUND = 1e-4      # tests/test_torch_ssm.py's JAMBA and its reason
+
+
+def family_cuts():
+    """(config, cut, why) of the five runs: full width, bf16, depth cut
+    only where the card forces it."""
+    import dataclasses
+    from repro_torch.configs import get
+    out = []
+    for arch in ("xlstm-350m", "whisper-medium"):
+        out.append((get(arch), "none", "the whole model fits"))
+    for arch in ("kimi-k2-1t-a32b", "arctic-480b"):
+        full = get(arch)
+        m = full.moe
+        experts = 2 * 3 * m.n_experts * full.d_model * m.d_ff_expert
+        out.append((dataclasses.replace(full, n_layers=1),
+                    f"{full.n_layers} -> 1 layer",
+                    f"the full model's bf16 weights are "
+                    f"{2 * full.n_params() / 1e12:.2f} TB; one layer's "
+                    f"{m.n_experts} experts are {experts / 1e9:.1f} GB, and "
+                    f"the largest leaf is drawn in f32 first "
+                    f"({2 * experts / 3 / 1e9:.1f} GB more while it is "
+                    f"drawn)"))
+    full = get("jamba-1.5-large-398b")
+    out.append((dataclasses.replace(full, **JAMBA_CUT),
+                f"{full.n_layers} -> 2 layers ({JAMBA_CUT})", JAMBA_WHY))
+    return out
+
+
+def phase_families(args):
+    """[families] xlstm-350m, whisper-medium, kimi-k2-1t-a32b, arctic-480b
+    and jamba-1.5-large-398b at full width (``family_cuts``), jamba also
+    behind ``ServeEngine`` with the serve phase's traffic; the attention
+    kernels held to their plain versions at every new shape; the sLSTM
+    backward against autograd at full width; the five at reduced size in
+    f32 on cuda and on cpu."""
     import torch
-    from torch.utils._pytree import tree_map
-    from repro_torch.configs import get, reduced
-    from repro_torch.kernels import KERNELS
-    from repro_torch.models import build
-    cfg = reduced(get(arch))
-    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (2, 80))
-    params = build(cfg, device="cuda").init(seed=seed)
-    runs = {}
-    before = {k.__name__: k.launches for k in KERNELS}
-    for dev in ("cuda", "cpu"):
-        model = build(cfg, device=dev)
-        p = tree_map(lambda t: t.to(dev), params)
-        logits, cache = model.prefill(
-            p, torch.as_tensor(toks, device=dev), max_len=128)
-        seq, out = [logits.cpu()], []
-        for _ in range(4):
-            tok = logits[:, -1].argmax(-1, keepdim=True)
-            out.append(tok.cpu())
-            logits, cache = model.decode_step(p, cache, tok)
-            seq.append(logits.cpu())
-        runs[dev] = (seq, torch.cat(out, 1))
-        if dev == "cuda":
-            launches = {k.__name__: k.launches - before[k.__name__]
-                        for k in KERNELS}
-    check(launches["flash_attention"] == cfg.n_layers and
-          launches["paged_attention"] == 4 * cfg.n_layers,
-          f"reduced {arch} on cuda: launches {launches}")
-    check(torch.equal(runs["cuda"][1], runs["cpu"][1]),
-          f"reduced {arch}: tokens differ between cuda and cpu")
+    from repro_torch.models import param_stats
+    t_phase = time.perf_counter()
+    tag = "[families]"
+    for cfg, cut, why in family_cuts():
+        t0 = time.perf_counter()
+        if cfg.family == "hybrid":
+            from repro_torch.models import build
+            n = param_stats(build(cfg, device="cuda"))["total"]
+            log(f"{tag} {cfg.arch_id}: depth cut {cut} ({why})")
+            eng, model, params, _p, capture, launches = serve_arch(
+                args, cfg, tag, n_expected=n)
+            model_attn_checks(capture, launches, tag,
+                              f"the {cfg.arch_id} serve run")
+            del eng, capture
+            torch.cuda.empty_cache()
+        else:
+            model, params = model_params(args, cfg, tag, cut, why)
+        capture, launches = model_run(
+            args, model, params, tag, 128 if cfg.enc_dec else 1152)
+        model_attn_checks(capture, launches, tag, f"the {cfg.arch_id} run")
+        del model, params, capture
+        torch.cuda.empty_cache()
+        log(f"{tag} {cfg.arch_id}: {time.perf_counter() - t0:.1f} s")
+    slstm_grad_check(args.seed)
+    for arch in ("kimi-k2-1t-a32b", "arctic-480b", "jamba-1.5-large-398b",
+                 "xlstm-350m", "whisper-medium"):
+        reduced_parity(arch, args.seed, tag)
+    log(f"{tag} phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def slstm_grad_check(seed: int):
+    """One sLSTM layer of xlstm-350m (D 1024) in f32 on the card, B 2 x S
+    256: ``SLSTMScan``'s gradients of every parameter and of the input
+    against plain autograd through the loop, each within 1e-4 x max|ref| +
+    1e-6 (the [train] bound), for a random cotangent of the output."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.common import ParamInit
+    cfg = get("xlstm-350m")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pi = ParamInit(gen, torch.float32, torch.device("cuda"))
+    p0 = {k: v[0] for k, v in
+          X.make_slstm_params(pi, 1, cfg.d_model, cfg.n_heads).items()}
+    x0 = torch.randn(2, 256, cfg.d_model, generator=gen, device="cuda")
+    ct = torch.randn(2, 256, cfg.d_model, generator=gen, device="cuda")
+
+    def grads(plain: bool):
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        x = x0.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if plain:
+            st = X.init_slstm_state(2, cfg.d_model, x.device)
+            xin = x @ p["w_in"]
+            hs = []
+            for t in range(x.shape[1]):
+                st = X._slstm_cell(p, xin[:, t], st)
+                hs.append(st.h)
+            y = X._slstm_ffn(p, torch.stack(hs, 1), x)
+        else:
+            y = X.slstm_seq(p, x)[0]
+        (y * ct).sum().backward()
+        torch.cuda.synchronize()
+        return ({**{k: v.grad for k, v in p.items()}, "x": x.grad},
+                time.perf_counter() - t0)
+
+    grads(False), grads(True)                   # first-call costs
+    (fn, fn_s), (ag, ag_s) = grads(False), grads(True)
     worst = 0.0
-    for a, b in zip(*(runs[d][0] for d in ("cuda", "cpu"))):
-        used, _, _ = check_close(a, b, 2e-5 + 2e-5 * b.abs(),
-                                 f"reduced {arch} logits, cuda vs cpu")
+    for k in ag:
+        used = float((fn[k] - ag[k]).abs().max()) / (
+            1e-4 * float(ag[k].abs().max()) + 1e-6)
+        check(used <= 1.0, f"sLSTM gradient of {k}: {used:.3f} of the bound")
         worst = max(worst, used)
-    log(f"[models] reduced {arch} (f32, {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv heads, "
-        f"head_dim {cfg.hd}): prefill logits and 4 decode steps equal on "
-        f"cuda and cpu within 2e-5 + 2e-5 x |cpu| (at most {worst:.3f} of "
-        f"the bound), tokens {runs['cuda'][1].tolist()}; cuda launches "
-        f"{launches}")
+    log(f"[families] sLSTM backward (xlstm-350m's width, D {cfg.d_model}, "
+        f"f32, B 2 x S 256): SLSTMScan's gradients of {sorted(ag)} equal "
+        f"plain autograd through the loop within 1e-4 x max|ref| + 1e-6, at "
+        f"most {worst:.4f} of the bound; forward + backward {fn_s:.3f} s "
+        f"(autograd through the loop {ag_s:.3f} s; each the second run)")
 
 
 # ------------------------------------------------------------ training
@@ -2559,7 +2853,8 @@ def main(argv=None) -> int:
     ap.add_argument("--e-keys", type=int, default=40_000,
                     help="keys loaded for the YCSB-E phase")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("models", "train"), action="append",
+    ap.add_argument("--only", choices=("models", "families", "train"),
+                    action="append",
                     help="development aid: build the kernels and run only "
                     "these phases (repeatable); prints no kernels line and "
                     "no final result line")
@@ -2591,7 +2886,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     if args.only:
         for name in args.only:
-            {"models": phase_models, "train": phase_train}[name](args)
+            {"models": phase_models, "families": phase_families,
+             "train": phase_train}[name](args)
         log(f"[done] {time.perf_counter() - t_start:.1f} s (only "
             f"{', '.join(args.only)})")
         return 0
@@ -2651,6 +2947,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_serve_parity(args.seed)
     phase_models(args)
+    phase_families(args)
     phase_train(args)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 

@@ -2,10 +2,12 @@
 registry, and ``reduced`` for CPU-sized twins.
 
 Counterpart of the JAX package's ``configs/base.py`` (same fields, same
-parameter count, same ``reduced`` rules).  Left out with the dry-run that
-uses them: ``ShapeSpec``, the shape constants and ``cells``; and the
-parameter count of the recurrent families (mamba, xlstm), which wait for
-their models (ROADMAP A9).
+parameter counts, same ``reduced`` rules).  Left out with the dry-run that
+uses them: ``ShapeSpec``, the shape constants and ``cells``.
+
+``n_params`` is the reference's formula, kept as it is.  For the mamba,
+xlstm and encoder-decoder families it does not count the leaves of the
+models' parameter trees (``models.registry.param_stats`` does).
 """
 from __future__ import annotations
 
@@ -73,8 +75,12 @@ class ArchConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
     def n_params(self) -> int:
-        """Total parameter count."""
+        """Total parameter count (the reference's formula)."""
         return _count_params(self)
+
+    def n_active_params(self) -> int:
+        """Active-per-token parameters (MoE: only top_k experts)."""
+        return _count_params(self, active_only=True)
 
 
 def _attn_params(cfg: ArchConfig) -> int:
@@ -90,17 +96,41 @@ def _ffn_params(d_model: int, d_ff: int) -> int:
     return 3 * d_model * d_ff  # gate, up, down (SwiGLU)
 
 
-def _layer_params(cfg: ArchConfig, i: int) -> int:
+def _mamba_params(cfg: ArchConfig) -> int:
+    s = cfg.ssm or SSMConfig()
+    d_in = s.expand * cfg.d_model
+    return (cfg.d_model * 2 * d_in          # in_proj (x, z)
+            + d_in * s.d_conv               # conv
+            + d_in * (s.d_state * 2 + 1)    # B, C, dt per-channel proj basis
+            + d_in * s.d_state              # A
+            + d_in                          # D
+            + d_in * cfg.d_model)           # out_proj
+
+
+def _xlstm_params(cfg: ArchConfig, layer: int) -> int:
+    s = cfg.ssm or SSMConfig()
+    d = cfg.d_model
+    slstm = s.slstm_every and ((layer + 1) % s.slstm_every == 0)
+    if slstm:
+        # 4 gates (i,f,z,o) input + recurrent, + up/down proj (factor 4/3)
+        dp = int(4 * d / 3)
+        return 4 * d * d + 4 * d * d + 2 * d * dp
+    # mLSTM: qkv + i,f gates + out, inner dim 2*d
+    di = 2 * d
+    return d * 3 * di + 2 * d + di * d + 2 * d * di  # qkv, gates, out, up/down
+
+
+def _layer_params(cfg: ArchConfig, i: int, active_only: bool) -> int:
     d = cfg.d_model
     norms = 2 * d
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: parameter count of the {cfg.family} family "
-            "waits for its model (ROADMAP A9)")
-    mix = _attn_params(cfg)
+    if cfg.family == "ssm":
+        return _xlstm_params(cfg, i) + norms
+    is_attn = (i % cfg.attn_every) == cfg.attn_phase if cfg.attn_every > 1 else True
+    mix = _attn_params(cfg) if is_attn else _mamba_params(cfg)
     if cfg.moe is not None and (i % cfg.moe.moe_every) == (cfg.moe.moe_every - 1):
         m = cfg.moe
-        ffn = m.n_experts * _ffn_params(d, m.d_ff_expert) + d * m.n_experts
+        n_e = m.top_k if active_only else m.n_experts
+        ffn = n_e * _ffn_params(d, m.d_ff_expert) + d * m.n_experts  # + router
         ffn += _ffn_params(d, m.dense_residual_d_ff) if m.dense_residual_d_ff else 0
     elif cfg.d_ff > 0:
         ffn = _ffn_params(d, cfg.d_ff)
@@ -109,16 +139,16 @@ def _layer_params(cfg: ArchConfig, i: int) -> int:
     return mix + ffn + norms
 
 
-def _count_params(cfg: ArchConfig) -> int:
+def _count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     total = cfg.vocab * cfg.d_model  # embed
     if not cfg.tie_embeddings:
         total += cfg.vocab * cfg.d_model  # lm head
     total += cfg.d_model  # final norm
     for i in range(cfg.n_layers):
-        total += _layer_params(cfg, i)
+        total += _layer_params(cfg, i, active_only)
     if cfg.enc_dec:
         for i in range(cfg.n_enc_layers):
-            total += _layer_params(cfg, i)
+            total += _layer_params(cfg, i, active_only)
             total += _attn_params(cfg) + cfg.d_model  # decoder cross-attn+norm
     return total
 
@@ -145,8 +175,9 @@ def all_archs() -> List[str]:
 
 
 def _load_all():
-    from . import (chameleon_34b, llama3_8b, mistral_large_123b,  # noqa
-                   qwen3_32b, smollm_360m)
+    from . import (arctic_480b, chameleon_34b, jamba_1_5_large_398b,  # noqa
+                   kimi_k2_1t_a32b, llama3_8b, mistral_large_123b,
+                   qwen3_32b, smollm_360m, whisper_medium, xlstm_350m)
 
 
 def reduced(cfg: ArchConfig, *, n_layers: int = 2, d_model: int = 64,

@@ -20,8 +20,12 @@ counterpart of the JAX package's ``flash_attention_jnp`` (no kernel runs
 there, as none does in the reference's training path; the hand-written
 ``flash_attention`` has no backward).
 
-Counterpart of the JAX package's ``models/attention.py``; cross-attention
-is not ported yet (ROADMAP A9.2).
+Whisper's encoder self-attention and its decoder's cross-attention over
+the encoder's K/V are non-causal: ``flash_attention(..., causal=False)``
+when serving (one launch a layer, also at Sq = 1 in decode), and
+``flash_attention_train(causal=False)`` in the training forward.
+
+Counterpart of the JAX package's ``models/attention.py``.
 """
 from __future__ import annotations
 
@@ -157,3 +161,36 @@ def attn_decode(p, x, pos: int, rope, kc, vc, *, qk_norm: bool):
     vc.view(nb * tb, B, KV, hd)[pos] = v[:, 0]
     o = paged_attention(q[:, 0], kc, vc, pos + 1)[:, None]
     return _out(p, o)
+
+
+def attn_encode(p, x, rope, *, qk_norm: bool, train: bool, q_chunk: int):
+    """Non-causal self-attention of the encoder (every frame sees every
+    frame): ``flash_attention`` when serving, ``flash_attention_train``
+    in the training forward."""
+    q, k, v = project_qkv(p, x, rope, qk_norm)
+    return _out(p, _noncausal(q, k, v, train, q_chunk))
+
+
+def _noncausal(q, k, v, train: bool, q_chunk: int):
+    """q (B, Sq, H, hd) over k/v (B, Skv, KV, hd), no mask."""
+    if train:
+        return flash_attention_train(q, k, v, causal=False, q_chunk=q_chunk)
+    return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=False).transpose(1, 2)
+
+
+# ------------------------------------------------------ whisper cross-attn --
+def cross_attn_kv(p, enc_out):
+    """Cross-attention K/V (B, S_enc, KV, hd) from the encoder's output,
+    computed once a request; no rope."""
+    dt = enc_out.dtype
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(dt))
+    return k, v
+
+
+def cross_attn(p, x, k, v, *, train: bool, q_chunk: int):
+    """Non-causal attention of decoder states x (B, S, D) over the
+    encoder's K/V."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    return _out(p, _noncausal(q, k, v, train, q_chunk))

@@ -2,10 +2,11 @@
 trees (same nesting, same layouts, same values).
 
 ``params_from_jax(jax.tree.map(np.asarray, params), device="cpu")`` gives
-the port a model that computes what the JAX model computes (any dense
-tree: tied embeddings have no ``lm_head``, qk-norm layers carry
-``q_norm``/``k_norm``); ``optim.opt_state_from_jax`` does the same for an
-optimizer state.  Imports no JAX: the caller turns JAX arrays into numpy
+the port a model that computes what the JAX model computes, for every
+family's tree (tied embeddings with no ``lm_head``, qk-norm layers,
+``moe`` routers and ``experts``, ``mamba``, ``mlstm`` and ``slstm``
+mixers, whisper's ``cross`` attention and ``enc`` encoder);
+``optim.opt_state_from_jax`` does the same for an optimizer state.  Imports no JAX: the caller turns JAX arrays into numpy
 first (bfloat16 arrays arrive with numpy's ``bfloat16`` extension dtype
 and keep their bits).
 """

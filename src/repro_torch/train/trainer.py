@@ -140,8 +140,12 @@ class Trainer:
         return True
 
     def _batch(self, step: int) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.model.device,
-                                          dtype=torch.int64)
+        """The dataset's batch on the model's device: integer arrays
+        (tokens, labels) as int64, float arrays (an encoder-decoder's
+        ``frames``) in the model's dtype."""
+        return {k: torch.from_numpy(v).to(
+                    self.model.device, dtype=torch.int64
+                    if v.dtype.kind in "iu" else self.model.dtype)
                 for k, v in self.dataset.batch_at(step).items()}
 
     def run(self, n_steps: int, *, fail_at: Optional[int] = None):

@@ -608,6 +608,14 @@ def _randn(rng, shape, dt):
     (1, 8, 1, 65, 300, 64, True),
     (1, 4, 2, 300, 129, 64, True),
     (1, 24, 2, 257, 257, 64, True),     # G = 12
+    # arctic-480b: 56 heads over 8 kv heads (G = 7)
+    (1, 56, 8, 1152, 1152, 128, True),
+    (2, 14, 2, 300, 300, 128, True),
+    # whisper-medium (hd 64, G = 1): the encoder, and cross-attention at
+    # Sq 1 (decode) and 128 (prefill) over its 1500 frames
+    (1, 16, 16, 1500, 1500, 64, False),
+    (4, 16, 16, 1, 1500, 64, False),
+    (4, 16, 16, 128, 1500, 64, False),
 ])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(B, H, KV, Sq, Skv, hd, causal,
@@ -700,6 +708,11 @@ def test_flash_attention_kernel_raises_on_unsupported_head_dim():
     (2, 256, 2, 1, 16, 128, 300),
     (4, 128, 1, 2, 32, 64, 257),
     (2, 64, 2, 1, 12, 16, 100),
+    # G = 7 (arctic-480b) and hd 64 at G = 1 (whisper-medium's decoder)
+    (2, 1024, 4, 8, 56, 128, 1156),
+    (2, 128, 2, 1, 7, 64, 200),
+    (1, 1024, 4, 16, 16, 64, 132),
+    (4, 128, 2, 4, 4, 64, 300),
 ])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel_matches_plain(nb, tb, B, KV, H, hd, vl, dt):
@@ -805,3 +818,69 @@ def test_train_step_on_cuda_matches_cpu():
         for a, b in zip(pg, pc):
             assert float((a - b).abs().max()) <= \
                 1e-4 * float(b.abs().max()) + 1e-6
+
+
+def test_slstm_function_on_cuda_matches_autograd():
+    """``SLSTMScan``'s deferred-reduction backward on the card against
+    plain autograd through the loop (f32, one sLSTM layer, B 2 x S 64):
+    every parameter's and the input's gradient within 1e-4 x max|ref| +
+    1e-6 (the bound of tests/test_torch_train.py)."""
+    require_cuda()
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.common import ParamInit
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pi = ParamInit(gen, torch.float32, torch.device("cuda"))
+    p0 = {k: v[0] for k, v in X.make_slstm_params(pi, 1, 256, 4).items()}
+    x0 = torch.randn(2, 64, 256, generator=gen, device="cuda")
+
+    def grads(plain):
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        x = x0.clone().requires_grad_(True)
+        if plain:
+            st = X.init_slstm_state(2, 256, x.device)
+            xin = x @ p["w_in"]
+            hs = []
+            for t in range(x.shape[1]):
+                st = X._slstm_cell(p, xin[:, t], st)
+                hs.append(st.h)
+            y = X._slstm_ffn(p, torch.stack(hs, 1), x)
+        else:
+            y = X.slstm_seq(p, x)[0]
+        y.square().sum().backward()
+        return {**{k: v.grad for k, v in p.items()}, "x": x.grad}
+
+    got, want = grads(False), grads(True)
+    for k in want:
+        assert float((got[k] - want[k]).abs().max()) <= \
+            1e-4 * float(want[k].abs().max()) + 1e-6, k
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_slstm_graphed_scan_matches_the_eager_scan(dt):
+    """Serving's sLSTM scan on the card (CUDA graphs of ``GRAPH_STEPS``
+    steps and an eager tail) against ``SLSTMScan``'s eager loop, over two
+    whole graphs and a tail, then again from the carried state (the graph
+    reused with another layer's weights): outputs and states within 2e-5 +
+    2e-5 x |ref| in f32 (summation order) and one bf16 rounding of the
+    output in bf16."""
+    require_cuda()
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.common import ParamInit
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pi = ParamInit(gen, dt, torch.device("cuda"))
+    layers = X.make_slstm_params(pi, 2, 256, 4)
+    x = torch.randn(3, 2 * X.GRAPH_STEPS + 5, 256, generator=gen,
+                    device="cuda").to(dt)
+    tol = 2e-5 if dt == torch.float32 else 2 ** -7
+    st_g = st_e = None
+    for i in range(2):
+        p = {k: v[i] for k, v in layers.items()}
+        xin = (x @ p["w_in"]).transpose(0, 1)
+        st0 = st_g or X.init_slstm_state(3, 256, x.device)
+        hs_g, st_g = X._scan_graphed(p["w_rec"], p["b"], xin, st0)
+        hs_e, *st_e = X.SLSTMScan.apply(p["w_rec"], p["b"], xin,
+                                        *(st_e or st0))
+        torch.testing.assert_close(hs_g, hs_e, rtol=tol, atol=tol)
+        for a, b in zip(st_g, st_e):
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+        st_e = X.SLSTMState(*st_e)

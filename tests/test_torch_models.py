@@ -78,10 +78,14 @@ def _leaves(tree, prefix=""):
 
 
 # ------------------------------------------------------------- parameters
-@pytest.mark.parametrize("arch", DENSE + ["fusee_paper"])
+ALL = DENSE + ["kimi-k2-1t-a32b", "arctic-480b", "jamba-1.5-large-398b",
+               "xlstm-350m", "whisper-medium"]
+
+
+@pytest.mark.parametrize("arch", ALL + ["fusee_paper"])
 def test_configs_match_reference(arch):
-    """Every ported config: the reference's fields, parameter count,
-    reduced twin and padded vocabulary."""
+    """Every ported config: the reference's fields, parameter counts (total
+    and active), reduced twin and padded vocabulary."""
     if arch == "fusee_paper":
         from repro.configs import FuseePaperConfig as RefPaper
         from repro_torch.configs import FuseePaperConfig
@@ -92,9 +96,12 @@ def test_configs_match_reference(arch):
     assert dataclasses.asdict(PC.get(arch)) == dataclasses.asdict(RC.get(arch))
     assert dataclasses.asdict(PC.reduced(PC.get(arch))) == \
         dataclasses.asdict(RC.reduced(RC.get(arch)))
-    assert PC.get(arch).n_params() == RC.get(arch).n_params()
-    assert PC.reduced(PC.get(arch)).n_params() == \
-        RC.reduced(RC.get(arch)).n_params()
+    assert sorted(PC.all_archs()) == sorted(RC.all_archs())
+    for port_cfg, ref_cfg in ((PC.get(arch), RC.get(arch)),
+                              (PC.reduced(PC.get(arch)),
+                               RC.reduced(RC.get(arch)))):
+        assert port_cfg.n_params() == ref_cfg.n_params()
+        assert port_cfg.n_active_params() == ref_cfg.n_active_params()
     ref = ref_build(RC.get(arch), make_host_mesh((1, 1), ("data", "model")))
     assert Model(PC.get(arch), device="cpu").vocab_p == ref.vocab_p
     if arch != "llama3-8b":
@@ -200,21 +207,20 @@ def test_six_decode_steps_match_reference(arch):
 
 
 def test_model_rejects_unported_families_and_missing_gpu():
-    """The families still missing (A9.2) raise: MoE, the recurrent ssm and
-    hybrid stacks, and the encoder-decoder; vlm runs the dense stack."""
-    base = PC.reduced(PC.get("llama3-8b"))
-    missing = [
-        dataclasses.replace(base, family="moe", moe=PC.MoEConfig(
-            n_experts=4, top_k=2, d_ff_expert=32)),
-        dataclasses.replace(base, family="ssm", ssm=PC.SSMConfig()),
-        dataclasses.replace(base, family="hybrid", ssm=PC.SSMConfig(),
-                            attn_every=2),
-        dataclasses.replace(base, family="audio", enc_dec=True,
-                            n_enc_layers=2),
-    ]
-    for cfg in missing:
-        with pytest.raises(NotImplementedError, match="A9.2"):
-            Model(cfg, device="cpu")
+    """Every registered config builds on the CPU, its reduced twin with
+    the reference's superblock (positions and repeat count); with no
+    device named, a model needs the CUDA card."""
+    from repro.models.model import superblock as ref_superblock
+    from repro_torch.models.model import superblock
+    for arch in PC.all_archs():
+        full = Model(PC.get(arch), device="cpu")
+        assert full.abstract_params()["embed"].shape[0] == full.vocab_p
+        cfg = PC.reduced(PC.get(arch))
+        specs, n = superblock(cfg)
+        ref_specs, ref_n = ref_superblock(RC.reduced(RC.get(arch)))
+        assert n == ref_n and [dataclasses.astuple(x) for x in specs] == \
+            [dataclasses.astuple(x) for x in ref_specs]
+        assert build(cfg, device="cpu").n_super == n
     assert Model(PC.reduced(PC.get("chameleon-34b")), device="cpu").n_super \
         == 2
     if not torch.cuda.is_available():

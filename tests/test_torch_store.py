@@ -201,9 +201,9 @@ def test_features_outside_the_slice_raise():
     # obs hub, the verb tracer, the profiler (tests/test_torch_obs.py,
     # tests/test_torch_profile.py), the sanitizers
     # (tests/test_torch_analysis.py), the DPOR explorer and the protocol
-    # lints (tests/test_torch_explore.py, tests/test_torch_lint.py); models
-    # outside the dense family are not (ROADMAP A9)
-    import dataclasses
+    # lints (tests/test_torch_explore.py, tests/test_torch_lint.py), and
+    # every model family (tests/test_torch_models.py, test_torch_moe.py,
+    # test_torch_ssm.py, test_torch_encdec.py); launch/ is not (ROADMAP A14)
     import importlib
     from repro_torch.configs import base as PC
     from repro_torch.models import Model
@@ -231,9 +231,10 @@ def test_features_outside_the_slice_raise():
     for name in ("explore", "lint"):
         mod = importlib.import_module(f"repro_torch.analysis.{name}")
         assert callable(mod.main)
-    ssm = dataclasses.replace(PC.reduced(PC.get("llama3-8b")), family="ssm")
-    with pytest.raises(NotImplementedError, match="A9"):
-        Model(ssm, device="cpu")
+    assert Model(PC.reduced(PC.get("xlstm-350m")), device="cpu").n_super \
+        == 1
+    with pytest.raises(ModuleNotFoundError):
+        importlib.import_module("repro_torch.launch")
     cl = T.FuseeCluster(T.DMConfig(), num_clients=2, device="cpu")
     assert cl.attach_tracer() is cl.attach_tracer()
     assert cl.profile()["conservation"]["ok"]
