@@ -9,7 +9,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (printing
 ptxas's registers, shared memory, spills and warnings for every library)
 and then:
 
-1. prints the card's name and power limit as ``nvidia-smi`` reports them;
+1. prints the card's name and power limit as ``nvidia-smi`` reports them,
+   and beside them ``launch.device.device_spec()``, which must be the
+   port's table entry for the H100 SXM5 (``[launch]``);
 2. holds each kernel bit for bit against its plain PyTorch version on edge
    inputs (keys 0, 2^31 and 2^32-1; slab words >= 2^63 and at the 32-bit
    boundary; zero-length and ragged read verbs; ``race_lookup`` through its
@@ -152,6 +154,22 @@ and then:
    against cpu, and the fault drill.  No hand-
    written kernel launches on the training path.
 
+``[launch]`` lines (the phase's parts run inside ``[serve]`` and
+``[train]``, so that no model is loaded twice): llama3-8b's 4 x 1152
+prefill and one decode step after the serve run, and the smollm-360m
+train step after its 30 steps, each counted on ``meta`` at the run's
+shapes (``launch.dryrun.count_step``) and timed on the card
+(``launch.roofline.measure``): FLOPs, HBM bytes, the bound at the data
+sheet's peaks, the step's time, ``share_of_bound`` (which must lie in
+(0, 1.05]) and ``mfu``, and the counted argument bytes beside the peak
+device memory (which must not be below them).  The measurement's profiled
+call gives each step's ``[profile]`` (serve) or ``[train] profiled step``
+line: wall time, the device's busy share and the top kernels.  Then one
+dry-run cell,
+``dryrun.run_cell("llama3-8b", "decode_32k")``, and the phase's time.
+The kernel rows' bounds take their HBM rate and bf16 peak from the same
+table (``launch/device.py``).
+
 ``--only models`` / ``families`` / ``train`` is a development aid for
 iterating on those phases: it builds the kernels, runs just those phases
 and prints
@@ -174,7 +192,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-MEM_BW_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
+# the card's data-sheet HBM rate and dense bf16 peak, from the port's table
+# (src/repro_torch/launch/device.py), set by ``load_spec`` in ``main``
+MEM_BW_BYTES_PER_S = PEAK_BF16_FLOPS = None
 
 
 class SmokeFailure(RuntimeError):
@@ -1594,7 +1614,6 @@ def phase_obs_overhead():
 
 
 # ------------------------------------------------------------ serving path
-PEAK_BF16_FLOPS = 989e12            # H100 SXM dense bf16, NVIDIA data sheet
 SERVE_POOL = dict(n_pages=2048, n_buckets=512, slots_per_bucket=8,
                   replicas=3)       # examples/serve_fusee.py's pool
 
@@ -1754,7 +1773,7 @@ def phase_serve(args):
     log(f"[serve] KV cache pages {tuple(cache.shape)} x2, "
         f"{2 * cache.numel() * cache.element_size()} bytes")
     serve_listing(eng, prompts)
-    profile_serve(model, params, prompts[4:])
+    launch_serve(model, params, prompts[:4])
     return capture, launches
 
 
@@ -1906,60 +1925,6 @@ def serve_listing(eng, prompts):
         f"keys (the {int(found.sum())} that SEARCH finds, sorted), one "
         f"leaf_probe launch over a keydir of {seen[0][1].numel()}, equal to "
         f"the plain version")
-
-
-def profile_serve(model, params, prompts, steps: int = 4):
-    """One prefill of the served batch and ``steps`` decode steps under
-    ``torch.profiler`` (after the counted run): the device's busy share of
-    each window and its top kernels by device time."""
-    import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    toks = torch.as_tensor(np.stack(prompts), dtype=torch.int64,
-                           device=model.device)
-    last = toks[:, -1:]
-
-    def window(name, fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in kern)
-        kern.sort(key=lambda e: -e.self_device_time_total)
-        top = "; ".join(f"{e.key[:60]} x{e.count} "
-                        f"{e.self_device_time_total / 1e3:.3f} ms"
-                        for e in kern[:6])
-        launches = sum(e.count for e in kern)
-        if not kern:
-            log(f"[profile] {name}: wall {wall_us / 1e3:.2f} ms; the profiler"
-                " recorded no device activity (device busy share not "
-                "measured)")
-            return out
-        ours = "; ".join(
-            f"{e.key.split('<')[0].split('::')[-1]} x{e.count} "
-            f"{e.self_device_time_total / 1e3:.3f} ms" for e in kern
-            if any(n in e.key for n in ("flash_fwd", "paged_split",
-                                        "paged_combine")))
-        log(f"[profile] {name}: wall {wall_us / 1e3:.2f} ms, device busy "
-            f"{busy_us / 1e3:.2f} ms (share {busy_us / wall_us:.3f}, idle "
-            f"{1 - busy_us / wall_us:.3f}), {launches} kernels; attention "
-            f"kernels: {ours or 'none'}; top: {top}")
-        return out
-
-    _, cache = window("prefill (4 x 1152 tokens)",
-                      lambda: model.prefill(params, toks, max_len=2048))
-
-    def decode():
-        for _ in range(steps):
-            model.decode_step(params, cache, last)
-
-    window(f"{steps} decode steps", decode)
 
 
 def sdpa(q, k, v, causal):
@@ -2620,7 +2585,7 @@ def phase_train(args):
                     f"({peak / 2 ** 30:.2f} GiB); stragglers "
                     f"{tr.watchdog.summary()['stragglers']}; losses "
                     f"{' '.join(f'{x:.4f}' for x in losses)}")
-                profile_train_step(tr)
+                launch_train(tr)
             else:
                 log(f"{tag}: losses {[round(x, 4) for x in losses]}; median "
                     f"{1e3 * med:.2f} ms per step; peak device memory {peak} "
@@ -2633,34 +2598,156 @@ def phase_train(args):
     log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def profile_train_step(tr):
-    """One more train step under ``torch.profiler``: wall time, the
-    device's busy share, and the top kernels by device time."""
+# ------------------------------------------------------------------ [launch]
+SPEC = []               # the card's launch.device.DeviceSpec, read once
+LAUNCH_S = [0.0]        # the [launch] phase's seconds, over its parts
+SHARE_MAX = 1.05        # a step faster than its bound means a wrong count
+
+
+def load_spec():
+    """The kernel rows' data-sheet rates, from the port's device table."""
+    global MEM_BW_BYTES_PER_S, PEAK_BF16_FLOPS
+    from repro_torch.launch.device import H100_SXM5_80GB
+    MEM_BW_BYTES_PER_S = H100_SXM5_80GB.hbm_bw
+    PEAK_BF16_FLOPS = H100_SXM5_80GB.peak_bf16_flops
+
+
+def launch_device(smi: str):
+    """[launch] (a): ``device_spec()`` on the card, which must be the
+    table's H100 SXM5 entry, beside the nvidia-smi line."""
+    t0 = time.perf_counter()
+    from repro_torch.launch.device import device_spec
+    spec = device_spec()
+    check(spec.name == "H100-SXM5-80GB", f"launch: device_spec() gave "
+          f"{spec.name}, not the table's H100-SXM5-80GB")
+    SPEC.append(spec)
+    LAUNCH_S[0] += time.perf_counter() - t0
+    log(f"[launch] device_spec(): {spec.name} (the card: {spec.card}, "
+        f"{spec.sm_count} SMs, {spec.hbm_bytes:.0f} bytes, power limit "
+        f"{spec.power_limit}); data-sheet peaks {spec.peak_bf16_flops:.4g} "
+        f"dense bf16 FLOP/s, {spec.hbm_bw:.4g} HBM bytes/s, "
+        f"{spec.link_bw:.4g} NVLink bytes/s a direction; nvidia-smi: {smi}")
+
+
+def launch_measure(tag: str, profile_tag: str, step, res):
+    """[launch] (b): ``step`` timed on the card beside its count on meta
+    (``res``, from ``dryrun.count_step`` at the run's shapes): the share of
+    its bound and its MFU, and the counted argument bytes beside the peak
+    device memory of the timed calls; and, as ``profile_tag``, the
+    profiled call's wall time, device busy share and top kernels."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    batch = tr._batch(tr.step)
+    from repro_torch.launch.roofline import measure
+    spec = SPEC[0]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.state, _ = tr.step_fn(tr.state, batch)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    if not kern:
-        log(f"[train] profiled step: wall {wall_us / 1e3:.2f} ms; the "
-            f"profiler recorded no device activity (busy share not "
-            f"measured)")
+    torch.cuda.reset_peak_memory_stats()
+    m = measure(step, costs=res["costs"], model_flops=res["model_flops"],
+                spec=spec)
+    peak = torch.cuda.max_memory_allocated()
+    args = res["memory"]["argument_bytes"]
+    log_profile(profile_tag, m)
+    busy = (f"{1e3 * m['t_busy']:.3f} ms" if m["t_busy"] is not None
+            else "not measured (no device activity in the profiler)")
+    log(f"[launch] {tag}: counted {m['flops']:.6e} FLOPs, "
+        f"{m['hbm_bytes']:.6e} HBM bytes ({m['hbm_bytes_raw']:.6e} with "
+        f"the attention kernels' plain versions), {res['count_s']:.2f} s on "
+        f"meta; t_compute "
+        f"{1e3 * m['t_compute']:.3f} ms, t_memory {1e3 * m['t_memory']:.3f}"
+        f" ms at the data sheet's peaks: bound {1e3 * m['t_bound']:.3f} ms "
+        f"({m['bottleneck']}); step {1e3 * m['t_step']:.3f} ms (median of "
+        f"{', '.join(f'{1e3 * t:.3f}' for t in m['t_steps'])} between CUDA "
+        f"events), device busy {busy}; share_of_bound "
+        f"{m['share_of_bound']:.4f}, mfu {m['mfu']:.4f} (model FLOPs "
+        f"{res['model_flops']:.6e}); argument bytes {args}, peak allocated "
+        f"{peak}; {spec.card}, {spec.power_limit}")
+    check(0 < m["share_of_bound"] <= SHARE_MAX,
+          f"launch: {tag}: share_of_bound {m['share_of_bound']:.4f} outside "
+          f"(0, {SHARE_MAX}]")
+    check(peak >= args, f"launch: {tag}: peak device memory {peak} below "
+          f"the counted argument bytes {args}")
+
+
+def log_profile(name: str, m):
+    """``measure``'s profiled call: its wall time, the device's busy share,
+    its kernels, the attention kernels and the top ones by device time."""
+    wall = m["t_profiled"]
+    if m["t_busy"] is None:
+        log(f"{name}: wall {1e3 * wall:.2f} ms; the profiler recorded no "
+            f"device activity (device busy share not measured)")
         return
-    busy_us = sum(e.self_device_time_total for e in kern)
-    kern.sort(key=lambda e: -e.self_device_time_total)
-    log(f"[train] profiled step: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy_us / 1e3:.2f} ms (share {busy_us / wall_us:.3f}), "
-        f"{sum(e.count for e in kern)} kernels; top: " + "; ".join(
-            f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
-            for e in kern[:8]))
+    busy = m["t_busy"]
+    ours = "; ".join(
+        f"{key.split('<')[0].split('::')[-1]} x{n} {1e3 * t:.3f} ms"
+        for key, n, t in m["top"]
+        if any(a in key for a in ("flash_fwd", "paged_split",
+                                  "paged_combine")))
+    top = "; ".join(f"{key[:60]} x{n} {1e3 * t:.3f} ms"
+                    for key, n, t in m["top"][:8])
+    log(f"{name}: wall {1e3 * wall:.2f} ms, device busy {1e3 * busy:.2f} ms "
+        f"(share {busy / wall:.3f}, idle {1 - busy / wall:.3f}), "
+        f"{m['n_kernels']} kernels; attention kernels: {ours or 'none'}; "
+        f"top: {top}")
+
+
+def launch_serve(model, params, prompts):
+    """[launch] (b) in [serve]: llama3-8b's 4 x 1152 prefill and one
+    decode step, each counted on meta at the run's shapes and measured
+    (the decode step's five calls advance the cache from position 1152 to
+    1156; the count is at 1152)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.dryrun import count_step
+    t0 = time.perf_counter()
+    toks = torch.as_tensor(np.stack(prompts), dtype=torch.int64,
+                           device=model.device)
+    B, S = toks.shape
+    prefill = type(model).prefill.__get__(model)      # not the timed one
+    decode = type(model).decode_step.__get__(model)
+    res = count_step(model.cfg, "prefill", B, S, max_len=2048,
+                     spec=SPEC[0])
+    launch_measure(f"llama3-8b prefill {B} x {S} (max_len 2048)",
+                   f"[profile] prefill ({B} x {S} tokens)",
+                   lambda: prefill(params, toks, max_len=2048), res)
+    _, cache = prefill(params, toks, max_len=2048)
+    res = count_step(model.cfg, "decode", B, S + 1, max_len=2048,
+                     spec=SPEC[0])
+    launch_measure(f"llama3-8b decode step {B} x 1 at position {S} of "
+                   f"2048", "[profile] decode step",
+                   lambda: decode(params, cache, toks[:, -1:]), res)
+    del cache
+    LAUNCH_S[0] += time.perf_counter() - t0
+
+
+def launch_train(tr):
+    """[launch] (b) in [train]: the smollm-360m step counted on meta and
+    measured; (c) one dry-run cell through ``dryrun.run_cell``."""
+    from repro_torch.launch.dryrun import count_step, run_cell
+    t0 = time.perf_counter()
+    batch = tr._batch(tr.step)
+    B, S = batch["tokens"].shape
+    res = count_step(tr.model.cfg, "train", B, S, n_micro=tr.tcfg.n_micro,
+                     spec=SPEC[0])
+
+    def step():
+        tr.state, _ = tr.step_fn(tr.state, batch)
+
+    launch_measure(f"smollm-360m train step {B} x {S} (AdamW fp32, remat "
+                   f"{tr.model.cfg.remat}, {tr.tcfg.n_micro} microbatch)",
+                   "[train] profiled step", step, res)
+    t1 = time.perf_counter()
+    cell = run_cell("llama3-8b", "decode_32k", spec=SPEC[0])
+    r, mem = cell["roofline"], cell["memory"]
+    check(r["flops"] > 0 and r["hbm_bytes"] > 0 and cell["n_chips"] == 1
+          and cell["step"] == "serve_step", "launch: run_cell gave "
+          f"{cell['roofline']}")
+    log(f"[launch] dryrun.run_cell('llama3-8b', 'decode_32k'): "
+        f"{r['flops']:.6e} FLOPs, {r['hbm_bytes']:.6e} HBM bytes, t_compute "
+        f"{1e3 * r['t_compute']:.3f} ms, t_memory {1e3 * r['t_memory']:.3f} "
+        f"ms ({r['bottleneck']}), resident {mem['resident_bytes']} bytes, "
+        f"fits_h100_80g {mem['fits_h100_80g']}; "
+        f"{time.perf_counter() - t1:.2f} s")
+    LAUNCH_S[0] += time.perf_counter() - t0
+    log(f"[launch] phase {LAUNCH_S[0]:.1f} s (device_spec, the serve and "
+        f"train measurements, one dry-run cell)")
 
 
 GRAD_CHECK_LAYERS = (0, 10, 21, 31)     # of smollm-360m's 32 layers
@@ -2872,6 +2959,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(src))
     sys.path.insert(0, str(ROOT / "tests"))      # the tests' shared helpers
+    load_spec()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2883,6 +2971,7 @@ def main(argv=None) -> int:
     phase_build()
     log(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", CUDA {torch.version.cuda}; nvidia-smi: {smi}")
+    launch_device(smi)
     dev = torch.device("cuda")
     if args.only:
         for name in args.only:

@@ -1,9 +1,13 @@
 """Architecture configuration: frozen ``ArchConfig`` dataclasses, a
 registry, and ``reduced`` for CPU-sized twins.
 
+Every input shape is a ``ShapeSpec``; an (arch, shape) pair is a dry-run
+*cell* (``cells``, counted by ``launch/dryrun.py``).  ``long_500k`` is
+taken only by the sub-quadratic configs; ``decode_*`` / ``long_*`` run
+one decode step against a cache of ``seq_len``.
+
 Counterpart of the JAX package's ``configs/base.py`` (same fields, same
-parameter counts, same ``reduced`` rules).  Left out with the dry-run that
-uses them: ``ShapeSpec``, the shape constants and ``cells``.
+parameter counts, same shapes and cells, same ``reduced`` rules).
 
 ``n_params`` is the reference's formula, kept as it is.  For the mamba,
 xlstm and encoder-decoder families it does not count the leaves of the
@@ -13,7 +17,23 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 
 @dataclass(frozen=True)
@@ -81,6 +101,21 @@ class ArchConfig:
     def n_active_params(self) -> int:
         """Active-per-token parameters (MoE: only top_k experts)."""
         return _count_params(self, active_only=True)
+
+    def shapes(self) -> List[ShapeSpec]:
+        """The shapes this config is counted at: train, prefill and decode,
+        and ``long_500k`` if it is sub-quadratic."""
+        out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+        if self.sub_quadratic:
+            out.append(LONG_500K)
+        return out
+
+    def skipped_shapes(self) -> List[Tuple[ShapeSpec, str]]:
+        out = []
+        if not self.sub_quadratic:
+            out.append((LONG_500K, "full attention is quadratic at 524288; "
+                        "shape reserved for ssm/hybrid archs"))
+        return out
 
 
 def _attn_params(cfg: ArchConfig) -> int:
@@ -178,6 +213,11 @@ def _load_all():
     from . import (arctic_480b, chameleon_34b, jamba_1_5_large_398b,  # noqa
                    kimi_k2_1t_a32b, llama3_8b, mistral_large_123b,
                    qwen3_32b, smollm_360m, whisper_medium, xlstm_350m)
+
+
+def cells() -> List[Tuple[ArchConfig, ShapeSpec]]:
+    """Every (arch, shape) dry-run cell: 32 over the ten configs."""
+    return [(get(a), s) for a in all_archs() for s in get(a).shapes()]
 
 
 def reduced(cfg: ArchConfig, *, n_layers: int = 2, d_model: int = 64,

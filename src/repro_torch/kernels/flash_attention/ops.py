@@ -8,9 +8,12 @@ writes strided views such as the model's transposes without a copy).  The
 causal mask is bottom-right aligned, as in the JAX package's
 ``flash_attention_ref``: query i sees key j iff
 ``j <= i + Skv - Sq`` (prefill has Sq == Skv).  The tensors' device decides
-the path: CPU tensors take ``flash_attention_plain``; CUDA tensors launch
+the path: CPU tensors take ``flash_attention_plain``, and so do ``meta``
+tensors, whose run only propagates shapes (``launch.roofline.count``,
+which counts the call as the kernel's ``work``); CUDA tensors launch
 ``csrc/flash_attention.cu`` (replacing the JAX package's
-``kernels/flash_attention/kernel.py::flash_attention_fwd``) or raise.
+``kernels/flash_attention/kernel.py::flash_attention_fwd``) or raise; any
+other device raises.
 Every kernel launch adds one to ``flash_attention.launches``.
 """
 from __future__ import annotations
@@ -20,7 +23,7 @@ import functools
 
 import torch
 
-from .. import build
+from .. import boundary, build
 
 __all__ = ["flash_attention", "flash_attention_plain"]
 
@@ -44,6 +47,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
     return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """The (query, key) pairs the causal mask leaves visible: the pairs
+    the kernel computes (it skips fully masked tiles)."""
+    if not causal:
+        return Sq * Skv
+    off = Skv - Sq
+    return Sq * off + Sq * (Sq + 1) // 2 if off >= 0 else Skv * (Skv + 1) // 2
+
+
+def work(q, k, v, causal: bool) -> tuple:
+    """(FLOPs, bytes) of the kernel on these inputs: two products of 2 *
+    hd FLOPs for each visible pair and query head; q, k, v read once and
+    the output written once."""
+    B, H, Sq, hd = q.shape
+    pairs = visible_pairs(Sq, k.shape[2], causal)
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    return 4 * B * H * hd * pairs, nbytes
 
 
 def _check_inputs(q, k, v):
@@ -92,8 +114,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Forward attention on the inputs' device (see module docstring)."""
     _check_inputs(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type in ("cpu", "meta"):     # meta: shapes only (a count)
+        return boundary.plain(
+            "flash_attention",
+            lambda: flash_attention_plain(q, k, v, causal=causal),
+            *work(q, k, v, causal))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, H, Sq, hd = q.shape

@@ -6,9 +6,12 @@ block pool kc, vc (nb, tb, B, KV, hd), all bfloat16 or all float32, and a
 host int ``valid_len`` (1 <= valid_len; positions >= valid_len are masked),
 and returns (B, H, hd) in q's dtype.  Query head h reads KV head
 h // (H / KV).  The tensors' device decides the path: CPU tensors take
-``paged_attention_plain``; CUDA tensors launch ``csrc/paged_attention.cu``
-(replacing the JAX package's
-``kernels/paged_attention/kernel.py::paged_attention_fwd``) or raise.
+``paged_attention_plain``, and so do ``meta`` tensors, whose run only
+propagates shapes (``launch.roofline.count``, which counts the call as
+the kernel's ``work``); CUDA tensors launch
+``csrc/paged_attention.cu`` (replacing the JAX package's
+``kernels/paged_attention/kernel.py::paged_attention_fwd``) or raise; any
+other device raises.
 The CUDA path splits the valid positions into chunks of ``SPLIT_CHUNK``
 (``split_plan``): one CTA per (split, kv head, batch row) writes its
 online-softmax partial (m, l, o) in f32 to scratch allocated here, and a
@@ -22,7 +25,7 @@ import functools
 
 import torch
 
-from .. import build
+from .. import boundary, build
 
 __all__ = ["paged_attention", "paged_attention_plain", "split_plan"]
 
@@ -56,6 +59,16 @@ def paged_attention_plain(q: torch.Tensor, kc: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,bktd->bkgd", p, v)
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def work(q, kc, valid_len: int) -> tuple:
+    """(FLOPs, bytes) of the kernel on these inputs: two products of 2 *
+    hd FLOPs for each valid position and query head; q read, the valid
+    positions of the pages read and the output written, each once."""
+    nb, tb, B, KV, hd = kc.shape
+    H, n = q.shape[1], min(int(valid_len), nb * tb)
+    nbytes = q.element_size() * (2 * B * H * hd + 2 * B * KV * n * hd)
+    return 4 * B * H * hd * n, nbytes
 
 
 def _check_inputs(q, kc, vc, valid_len):
@@ -96,8 +109,11 @@ def paged_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                     valid_len: int) -> torch.Tensor:
     """Decode attention on the inputs' device (see module docstring)."""
     _check_inputs(q, kc, vc, valid_len)
-    if q.device.type == "cpu":
-        return paged_attention_plain(q, kc, vc, valid_len)
+    if q.device.type in ("cpu", "meta"):     # meta: shapes only (a count)
+        return boundary.plain(
+            "paged_attention",
+            lambda: paged_attention_plain(q, kc, vc, valid_len),
+            *work(q, kc, valid_len))
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     nb, tb, B, KV, hd = kc.shape

@@ -1,5 +1,6 @@
 """Shared model components: parameter init, RMSNorm, RoPE, embeddings, the
-LM head, the training loss, dtype policy.
+LM head, the training loss, dtype policy, and ``sampled``, the counted
+form of a sequential loop.
 
 Parameters are plain nested dicts of tensors in the JAX package's layout
 (``models/convert.py`` maps its trees over one to one).  Init draws from an
@@ -13,7 +14,7 @@ bookkeeping for sharding has no single-card use and is left out.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import torch
 
@@ -63,6 +64,47 @@ class ParamInit:
         val = torch.randn(shape, generator=self.gen, dtype=torch.float32,
                           device=self.device)
         return val.mul_(std).to(self.dtype)
+
+
+# ---------------------------------------------------------- counted loops --
+LOOP_SCALES: List[int] = []     # trip counts of the sampled loops running
+SAMPLING = [False]              # set by ``launch.roofline.count``
+
+
+def sampled(steps: range, device: torch.device, *,
+            own_graph: bool = False) -> Iterator[int]:
+    """The steps of a sequential loop whose bodies all cost the same.
+
+    All of ``steps``, except on ``meta`` while a counter samples loops
+    (``launch.roofline.count``): then only the first runs, with
+    ``len(steps)`` pushed on ``LOOP_SCALES`` so that the counter scales the
+    costs of its ops by the trip count, the counterpart of the JAX
+    package's ``trip_count`` x body.  The caller gives the steps that did
+    not run empty outputs of their shape (``fill``).
+
+    A loop whose autograd graph crosses its steps runs in full unless its
+    body's backward also runs inside the body (``own_graph``): a backward
+    after the loop would be counted once, and the gradients the full loop
+    accumulates across steps would be missing."""
+    n = len(steps)
+    if not (SAMPLING[0] and n > 1 and device.type == "meta"
+            and (own_graph or not torch.is_grad_enabled())):
+        yield from steps
+        return
+    LOOP_SCALES.append(n)
+    try:
+        yield steps[0]
+    finally:
+        LOOP_SCALES.pop()
+
+
+def fill(outs: list, n: int) -> list:
+    """``outs`` padded to ``n`` entries with an empty tensor of its first
+    entry's shape: the outputs of a loop's steps that ``sampled`` did not
+    run (nothing to pad when every step ran)."""
+    if len(outs) == n:
+        return outs
+    return outs + [torch.empty_like(outs[0])] * (n - len(outs))
 
 
 # ---------------------------------------------------------------- numerics --

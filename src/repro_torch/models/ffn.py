@@ -83,7 +83,10 @@ def moe_route(ctx: MoEContext, router: torch.Tensor,
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = srt[:, :k], order[:, :k]                        # (T, k)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    flat = F.one_hot(idx.reshape(T * k), E)                     # (T k, E)
+    # one-hot (T k, E), as F.one_hot but with the same ops on every device
+    # (on the CPU F.one_hot first checks the ids' range, on meta it cannot)
+    flat = (idx.reshape(T * k, 1) ==
+            torch.arange(E, device=idx.device)).long()
     pos = ((flat.cumsum(0) - 1) * flat).sum(-1).reshape(T, k)
     return Routing(idx, pos, pos < cap, gate, cap)
 

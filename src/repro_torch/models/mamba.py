@@ -8,7 +8,8 @@ on the carried state, O(1) a token.
 
 Counterpart of the JAX package's ``models/mamba.py``: same parameters,
 same state, same arithmetic; its ``lax.scan`` over chunks is a Python
-loop here.
+loop here (``common.sampled``: a counter on ``meta`` runs one chunk and
+scales it by the chunk count).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ParamInit, rms_norm
+from .common import ParamInit, fill, rms_norm, sampled
 
 
 def make_mamba_params(pi: ParamInit, n: int, d_model: int, d_state: int,
@@ -106,7 +107,7 @@ def mamba_chunked(p, x, *, chunk: int, state: MambaState = None):
     h = (state.h if state is not None
          else torch.zeros(B, nh, P, N, dtype=torch.float32, device=x.device))
     ys = []
-    for c0 in range(0, S, L):
+    for c0 in sampled(range(0, S, L), x.device):
         xc, dc_ = xh[:, c0:c0 + L], dtv[:, c0:c0 + L]
         bc_, cc_ = bmat[:, c0:c0 + L], cmat[:, c0:c0 + L]
         adt = dc_ * a                                  # (B, L, nh) log decays
@@ -125,7 +126,7 @@ def mamba_chunked(p, x, *, chunk: int, state: MambaState = None):
         hb = torch.einsum("bshp,bsn,bsh->bhpn", xdt.float(), bc_, dec_end)
         h = ca[:, -1].exp()[:, :, None, None] * h + hb
         ys.append(y_in + y_ext)
-    y = torch.cat(ys, dim=1)
+    y = torch.cat(fill(ys, S // L), dim=1)
     y = y + xh * p["d_skip"].to(y.dtype)[None, None, :, None]
     return _gated_out(p, y.reshape(B, S, d_in), z, x), \
         MambaState(h=h, conv=conv_tail)

@@ -18,7 +18,8 @@ Serving on the card replays CUDA graphs of ``GRAPH_STEPS`` sLSTM steps
 costs a host launch.
 
 Counterpart of the JAX package's ``models/xlstm.py``; its ``lax.scan``
-loops are Python loops here.
+loops are Python loops here (``common.sampled``: a counter on ``meta``
+runs one chunk or step and scales it by the trip count).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ParamInit, rms_norm
+from .common import ParamInit, fill, rms_norm, sampled
 
 M_INIT = -1e30          # the stabiliser's start (log domain)
 
@@ -94,7 +95,7 @@ def mlstm_chunked(p, x, *, chunk: int, n_heads: int, state=None):
                else init_mlstm_state(B, D, n_heads, x.device))
     tri = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
     ys = []
-    for c0 in range(0, S, L):
+    for c0 in sampled(range(0, S, L), x.device):
         qc, kc, vc = q[:, c0:c0 + L], k[:, c0:c0 + L], v[:, c0:c0 + L]
         igc, lfc = ig[:, c0:c0 + L], logf[:, c0:c0 + L]
         clf = lfc.cumsum(1)                    # (B, L, nh) cumulative log-f
@@ -131,7 +132,7 @@ def mlstm_chunked(p, x, *, chunk: int, n_heads: int, state=None):
                                                  dec_end)
         m = m_end
         ys.append(y.to(x.dtype))
-    y = torch.cat(ys, dim=1).reshape(B, S, d_in)
+    y = torch.cat(fill(ys, S // L), dim=1).reshape(B, S, d_in)
     return _mlstm_out(p, y, z, x), MLSTMState(c=c, n=n, m=m)
 
 
@@ -257,16 +258,18 @@ class SLSTMScan(torch.autograd.Function):
     def forward(ctx, w_rec, b, xin, h0, c0, n0, m0):
         st = SLSTMState(h0, c0, n0, m0)
         prev, gs, hs = [], [], []
-        for t in range(xin.shape[0]):
+        S = xin.shape[0]
+        for t in sampled(range(S), xin.device):
             prev.append(st)
             gs.append(_pre(w_rec, b, xin[t], st.h))
             st = _slstm_gates(gs[-1], st)
             hs.append(st.h)
         if any(ctx.needs_input_grad):
-            seq = [torch.stack(x) for x in zip(*prev)]  # h, c, n, m (S, B, D)
-            ctx.save_for_backward(w_rec, b, torch.stack(gs), *seq)
+            # h, c, n, m (S, B, D)
+            seq = [torch.stack(fill(list(x), S)) for x in zip(*prev)]
+            ctx.save_for_backward(w_rec, b, torch.stack(fill(gs, S)), *seq)
             ctx.xin_dtype = xin.dtype
-        return (torch.stack(hs),) + tuple(st)
+        return (torch.stack(fill(hs, S)),) + tuple(st)
 
     @staticmethod
     def backward(ctx, dh_seq, dhT, dcT, dnT, dmT):
@@ -276,14 +279,15 @@ class SLSTMScan(torch.autograd.Function):
         dst = (z(dcT, seq[1][0]), z(dnT, seq[2][0]), z(dmT, seq[3][0]))
         dh_seq = z(dh_seq, seq[0])
         w_t = w_rec.t()
-        dgs = [None] * g_seq.shape[0]
-        for t in range(g_seq.shape[0] - 1, -1, -1):
+        S = g_seq.shape[0]
+        dgs = []                                           # last step first
+        for t in sampled(range(S - 1, -1, -1), g_seq.device):
             dg, dst = _slstm_gates_vjp(
                 g_seq[t], SLSTMState(*(s[t] for s in seq)),
                 (dh + dh_seq[t],) + dst)
             dh = (dg.to(w_rec.dtype) @ w_t).float()
-            dgs[t] = dg
-        dg_seq = torch.stack(dgs)                          # (S, B, 4D)
+            dgs.append(dg)
+        dg_seq = torch.stack(fill(dgs, S)[::-1])           # (S, B, 4D)
         dW = torch.einsum("sbd,sbe->de", seq[0].float(), dg_seq) \
             .to(w_rec.dtype)
         db = dg_seq.sum((0, 1)).to(b.dtype)

@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..ckpt import CheckpointManager, load_checkpoint
+from ..models.common import sampled
 from ..models.model import Model
 from ..optim import OptConfig, Optimizer, tree_leaves, tree_map
 from .fault import SimulatedFailure, StragglerWatchdog
@@ -87,7 +88,7 @@ def make_train_step(model: Model, opt: Optimizer, *,
         loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
         gsum = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
                                               device=t.device), params)
-        for i in range(n_micro):
+        for i in sampled(range(n_micro), model.device, own_graph=True):
             loss, grads = _value_and_grad(
                 model, params, {k: x[i] for k, x in micro.items()})
             loss_sum = loss_sum + loss

@@ -884,3 +884,38 @@ def test_slstm_graphed_scan_matches_the_eager_scan(dt):
         for a, b in zip(st_g, st_e):
             torch.testing.assert_close(a, b, rtol=tol, atol=tol)
         st_e = X.SLSTMState(*st_e)
+
+
+def test_device_spec_reads_the_card():
+    """``launch.device.device_spec()`` on the card: the table's H100 SXM5
+    entry with the card's own memory size and nvidia-smi's power limit."""
+    require_cuda()
+    from repro_torch.launch.device import device_spec
+    s = device_spec()
+    props = torch.cuda.get_device_properties(0)
+    assert s.name == "H100-SXM5-80GB" and s.card == props.name
+    assert s.hbm_bytes == props.total_memory and s.power_limit.endswith("W")
+    assert (s.peak_bf16_flops, s.hbm_bw) == (989e12, 3.35e12)
+
+
+def test_measure_a_reduced_prefill_within_its_bound():
+    """``launch.roofline.measure`` of a reduced llama3-8b prefill on the
+    card, against its count on meta at the same shapes: the step takes
+    longer than its bound (0 < share_of_bound <= 1.05) and its MFU is
+    positive."""
+    require_cuda()
+    from repro_torch.configs import base as C
+    from repro_torch.launch.device import device_spec
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.roofline import measure
+    from repro_torch.models import build
+    cfg = C.reduced(C.get("llama3-8b"))
+    model = build(cfg, device="cuda")
+    params = model.init(0)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device="cuda")
+    spec = device_spec()
+    res = count_step(cfg, "prefill", 2, 64, spec=spec)
+    m = measure(lambda: model.prefill(params, toks), costs=res["costs"],
+                model_flops=res["model_flops"], spec=spec)
+    assert 0 < m["share_of_bound"] <= 1.05
+    assert m["mfu"] > 0 and m["t_step"] > 0 and len(m["t_steps"]) == 3
