@@ -1782,7 +1782,9 @@ def serve_arch(args, arch, tag: str, n_expected=None):
     drawn from ``--seed``, serves 8 requests (a shared 1024-token system
     prompt plus 128 tokens each, 16 new each, max_batch 4) through
     ``ServeEngine`` over the FUSEE prefix-cache pool, with the launch
-    counts set to 0 just before the run and read just after.  The tree's
+    counts set to 0 just before the run and read just after, and the
+    engine's recorder on (``enable_trace``: the model calls' host times
+    and CUDA-event times, the prefix hits and SNAPSHOT epochs).  The tree's
     parameter count must equal ``n_expected`` (default: the config's
     formula at the padded vocabulary)."""
     import dataclasses
@@ -1827,20 +1829,7 @@ def serve_arch(args, arch, tag: str, n_expected=None):
     del cache
     log(f"{tag} warm-up (one 4 x 1152 prefill, one decode step): "
         f"{time.perf_counter() - t0:.3f} s")
-    timing = {"prefill": [], "decode": []}
-
-    def timed(name, fn):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            timing[name].append(1e3 * (time.perf_counter() - t))
-            return out
-        return run
-
-    model.prefill = timed("prefill", model.prefill)
-    model.decode_step = timed("decode", model.decode_step)
+    tr = eng.enable_trace()
     capture = ServeCapture()
     reset_launches()
     try:
@@ -1851,8 +1840,10 @@ def serve_arch(args, arch, tag: str, n_expected=None):
         wall = time.perf_counter() - t0
     finally:
         capture.close()
+        eng.trace = model.trace = None      # the calls after it untraced
     launches = {k.__name__: k.launches for k in KERNELS}
-    n_pre, n_dec = len(timing["prefill"]), len(timing["decode"])
+    pre, dec = tr.of("serve.prefill"), tr.of("serve.decode")
+    n_pre, n_dec = len(pre), len(dec)
     tokens = sum(len(q.out) for q in done)
     check(len(done) == 8 and all(len(q.out) == 16 for q in done),
           "serve: not every request finished with 16 tokens")
@@ -1872,17 +1863,23 @@ def serve_arch(args, arch, tag: str, n_expected=None):
     check(all(capture.calls[k] == launches[k] for k in capture.calls),
           f"serve: a kernel wrapper was called without launching: "
           f"{capture.calls} calls, {launches} launches")
-    st = eng.pool.stats
+    c = tr.counters()
+    check(c["serve.prefix.hits"] == sum(hits.values()),
+          f"serve: the recorder counted {c['serve.prefix.hits']} prefix hits"
+          f" for the requests' {sum(hits.values())}")
+    dev = [s.device_ms for s in dec]
     log(f"{tag} 8 requests (1024 shared + 128 own tokens, 16 new each), "
         f"max_batch 4, max_len 2048, pool {SERVE_POOL}: {tokens} tokens in "
         f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; {n_pre} prefills "
-        f"({', '.join(f'{t:.1f}' for t in timing['prefill'])} ms), {n_dec} "
-        f"decode steps ({np.mean(timing['decode']):.2f} ms mean, "
-        f"{np.min(timing['decode']):.2f} min, {np.max(timing['decode']):.2f}"
-        f" max); prefix hits {[hits[r] for r in range(8)]}; pool "
-        f"{st['search_batches']} search batches, {st['epochs']} SNAPSHOT "
-        f"epochs; launches {launches}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"(host {', '.join(f'{s.ms:.1f}' for s in pre)} ms, device "
+        f"{', '.join(f'{s.device_ms:.1f}' for s in pre)} ms), {n_dec} "
+        f"decode steps (host ms mean {np.mean([s.ms for s in dec]):.2f}; "
+        f"device ms mean {np.mean(dev):.2f}, min {np.min(dev):.2f}, max "
+        f"{np.max(dev):.2f}); prefix hits {[hits[r] for r in range(8)]}; "
+        f"pool {eng.pool.stats['search_batches']} search batches, "
+        f"{c['serve.snapshot.epochs']} SNAPSHOT epochs over "
+        f"{c['serve.insert.waves']} insert waves; launches {launches}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return eng, model, params, prompts, capture, launches
 
 

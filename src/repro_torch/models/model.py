@@ -129,6 +129,7 @@ class Model(torch.nn.Module):
         self.moe_ctx = (F.MoEContext(cfg.moe.n_experts, cfg.moe.top_k,
                                      cfg.moe.capacity_factor)
                         if cfg.moe is not None else None)
+        self.trace = None       # ServeEngine.enable_trace sets a recorder
 
     # ----------------------------------------------------------- building --
     def init(self, seed: int = 0) -> Dict[str, Any]:
@@ -221,8 +222,13 @@ class Model(torch.nn.Module):
         return out
 
     def _block(self, spec, p, x, mode, rope, j=0, cache=None, xkv=None,
-               pos=0):
+               pos=0, tr=None, i=0):
+        """Layer ``i`` of superblock ``j``; with a recorder ``tr``, its
+        mixer and its FFN each in a span."""
         cfg = self.cfg
+        if tr is not None:
+            layer = j * len(self.specs) + i
+            span = tr.begin("model.mix", layer)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + self._mix(spec, p, h, mode, rope, j, cache, pos)
         if spec.cross and xkv is not None:
@@ -230,7 +236,11 @@ class Model(torch.nn.Module):
             x = x + A.cross_attn(p["cross"], hx, xkv[0][j], xkv[1][j],
                                  train=mode == "train",
                                  q_chunk=cfg.attn_chunk_q)
+        if tr is not None:
+            tr.end(span)
         if spec.ffn != "none":
+            if tr is not None:
+                span = tr.begin("model.ffn", layer)
             h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
             out = None
             if "moe" in spec.ffn:
@@ -239,15 +249,24 @@ class Model(torch.nn.Module):
                 d = F.dense_ffn(p["ffn"], h2)
                 out = d if out is None else out + d
             x = x + out
+            if tr is not None:
+                tr.end(span)
         return x
 
     def _superblock(self, layers, x, j, mode, rope, caches=None, xkv=None,
-                    pos=0):
-        """Superblock ``j``: every position in order."""
+                    pos=0, tr=None):
+        """Superblock ``j``: every position in order (in spans where a
+        recorder ``tr`` is given: ``prefill`` and ``decode_step``)."""
         for i, spec in enumerate(self.specs):
-            x = self._block(spec, _layer(layers[i], j), x, mode, rope, j,
+            if tr is not None:
+                span = tr.begin("model.select", j * len(self.specs) + i)
+            p = _layer(layers[i], j)
+            if tr is not None:
+                tr.end(span)
+            x = self._block(spec, p, x, mode, rope, j,
                             caches[i] if caches is not None else None,
-                            xkv[i] if xkv is not None else None, pos)
+                            xkv[i] if xkv is not None else None, pos, tr,
+                            i)
         return x
 
     # ------------------------------------------------------ the encoder --
@@ -381,11 +400,13 @@ class Model(torch.nn.Module):
             cache["cross"] = self._cross_kv(params,
                                             self.encode(params, frames))
         rope = self._rope(torch.arange(S, device=self.device))
-        x = self._embed(params, tokens)
+        x = self._traced("model.embed", self._embed, params, tokens)
         for j in range(self.n_super):
             x = self._superblock(params["layers"], x, j, "prefill", rope,
-                                 cache["layers"], cache["cross"])
-        return self._head(params, x[:, -1:]), cache
+                                 cache["layers"], cache["cross"],
+                                 tr=self.trace)
+        return (self._traced("model.head", self._head, params, x[:, -1:]),
+                cache)
 
     def decode_step(self, params, cache, token: torch.Tensor):
         """token (B, 1); cache from ``prefill``, updated in place and
@@ -394,9 +415,19 @@ class Model(torch.nn.Module):
         one ``flash_attention`` per cross-attention)."""
         pos = int(cache["length"])
         rope = self._rope(torch.tensor([pos], device=self.device))
-        x = self._embed(params, token)
+        x = self._traced("model.embed", self._embed, params, token)
         for j in range(self.n_super):
             x = self._superblock(params["layers"], x, j, "decode", rope,
-                                 cache["layers"], cache.get("cross"), pos)
+                                 cache["layers"], cache.get("cross"), pos,
+                                 self.trace)
         cache["length"] = pos + 1
-        return self._head(params, x), cache
+        return self._traced("model.head", self._head, params, x), cache
+
+    def _traced(self, name: str, fn, *args):
+        """``fn(*args)`` in span ``name`` when a recorder is set."""
+        if self.trace is None:
+            return fn(*args)
+        span = self.trace.begin(name)
+        out = fn(*args)
+        self.trace.end(span)
+        return out

@@ -29,6 +29,8 @@ import torch
 
 from ..core.api import KVStore, Op
 from ..core.events import OK
+from ..kernels import flash_attention, paged_attention, race_lookup
+from ..obs.serve import ServeTrace
 from .backend import DeviceBackend
 from .kvpool import PoolConfig
 
@@ -85,6 +87,17 @@ class ServeEngine:
         self.slot_tokens = np.zeros((max_batch, max_len), np.int32)
         self.slot_len = np.zeros((max_batch,), np.int32)
         self.steps = 0
+        self.trace: Optional[ServeTrace] = None
+
+    def enable_trace(self) -> ServeTrace:
+        """Record this engine's and its model's spans and counters from
+        now on (``obs/serve.py``), with a CUDA event pair around each
+        model call on a CUDA device.  Returns the recorder."""
+        self.trace = ServeTrace(
+            events=self.device.type == "cuda",
+            launched=(race_lookup, paged_attention, flash_attention))
+        self.model.trace = self.trace
+        return self.trace
 
     @property
     def pool(self):
@@ -92,6 +105,8 @@ class ServeEngine:
         return self._backend.pool
 
     def submit(self, req: Request):
+        if self.trace is not None:
+            self.trace.submitted(req)
         self.queue.append(req)
 
     # -------------------------------------------------- worker recovery --
@@ -172,27 +187,49 @@ class ServeEngine:
         their prefix lookups with one batched GET wave (one pool.search ->
         race_lookup launch per admit tick) and all their misses with one
         batched INSERT wave."""
+        tr = self.trace
+        if tr is not None:
+            span = tr.begin("serve.admit")
         admitted: List[Request] = []
         while self.queue and self.slots_free:
             req = self.queue.pop(0)
             req.slot = self.slots_free.pop(0)
             admitted.append(req)
         if not admitted:
+            if tr is not None:
+                tr.end(span, admitted=0)
             return False
+        if tr is not None:
+            tr.admitted(admitted)
+            sub = tr.begin("serve.admit.hash")
         hashes = [_block_hashes(req.prompt) for req in admitted]
         flat = [int(h) for hs in hashes for h in hs]
+        if tr is not None:
+            tr.end(sub)
+        found = ins = None
+        epochs = 0
         if flat:
+            if tr is not None:
+                sub = tr.begin("serve.admit.search")
             res = [f.result() for f in self.store.submit_batch(
                 [Op.get(h) for h in flat])]
             found = np.array([r.status == OK for r in res], bool)
+            if tr is not None:
+                tr.end(sub)
             miss_idx = [i for i in range(len(flat)) if not found[i]]
             ins_res = {}
             if miss_idx:
+                if tr is not None:
+                    sub = tr.begin("serve.admit.insert")
+                    epochs0 = self.pool.stats["epochs"]
                 # duplicate hashes across requests collapse to one page in
                 # the device batch (concurrent upserts of one key)
                 ins = [f.result() for f in self.store.submit_batch(
                     [Op.insert(flat[i], None) for i in miss_idx])]
                 ins_res = dict(zip(miss_idx, ins))
+                if tr is not None:
+                    epochs = self.pool.stats["epochs"] - epochs0
+                    tr.end(sub, keys=len(miss_idx), epochs=epochs)
             pos = 0
             for req, hs in zip(admitted, hashes):
                 fnd = found[pos:pos + len(hs)]
@@ -214,6 +251,10 @@ class ServeEngine:
             self.slot_tokens[req.slot, :len(req.prompt)] = req.prompt
             self.slot_len[req.slot] = len(req.prompt)
             self.active[req.slot] = req
+        if tr is not None:
+            tr.end(span, admitted=len(admitted),
+                   prompt_tokens=sum(len(r.prompt) for r in admitted),
+                   **tr.admission(found, ins, epochs))
         return True
 
     def _prefill_all(self):
@@ -226,14 +267,25 @@ class ServeEngine:
         toks = torch.as_tensor(self.slot_tokens[:, :L], dtype=torch.int64,
                                device=self.device)
         self.cache = None           # free the old pages before the new ones
+        tr = self.trace
+        if tr is not None:
+            span = tr.begin("serve.prefill", device=True)
         logits, self.cache = self.model.prefill(self.params, toks,
                                                 max_len=self.max_len)
+        if tr is not None:
+            tr.end(span, batch=toks.shape[0], seq=toks.shape[1])
         return logits
 
     def _emit(self, logits):
         """Append each active slot's greedy next token (a slot at max_len
         keeps its tokens; it retires this tick)."""
+        tr = self.trace
+        if tr is not None:
+            span = tr.begin("serve.emit")
+            sync = tr.begin("serve.emit.sync")
         nxt = logits[:, -1].argmax(dim=-1).cpu().numpy()
+        if tr is not None:
+            tr.end(sync)
         for s, req in self.active.items():
             tok = int(nxt[s])
             req.out.append(tok)
@@ -241,22 +293,35 @@ class ServeEngine:
             if pos < self.max_len:
                 self.slot_tokens[s, pos] = tok
                 self.slot_len[s] = pos + 1
+        if tr is not None:
+            tr.end(span)
 
     def step(self) -> int:
         """One engine tick: admit + (re)prefill if membership changed, else
         decode one token for every active slot.  Returns #active."""
+        tr = self.trace
+        if tr is not None:
+            step = tr.begin_step()
         changed = self._admit()
         if not self.active:
+            if tr is not None:
+                tr.end_step(step, "idle")
             return 0
-        if changed or self.cache is None:
+        prefill = changed or self.cache is None
+        if prefill:
             self._emit(self._prefill_all())
         else:
             token = torch.as_tensor(
                 self.slot_tokens[np.arange(self.max_batch),
                                  np.maximum(self.slot_len - 1, 0)][:, None],
                 dtype=torch.int64, device=self.device)
+            if tr is not None:
+                span = tr.begin("serve.decode", device=True)
             logits, self.cache = self.model.decode_step(self.params,
                                                         self.cache, token)
+            if tr is not None:
+                tr.end(span, batch=token.shape[0],
+                       valid=self.cache["length"])
             self._emit(logits)
         self.steps += 1
         # retire finished
@@ -272,6 +337,8 @@ class ServeEngine:
                     # pages this request allocated that LOST their insert
                     # race are unreachable — free them back to the pool
                     self._backend.release_pages(req.surplus)
+        if tr is not None:
+            tr.end_step(step, "prefill" if prefill else "decode")
         return len(self.active)
 
     def run(self, max_ticks: int = 1000) -> List[Request]:
