@@ -1708,26 +1708,34 @@ def phase_serve_edge_checks(dev):
 
 class ServeCapture:
     """Keeps the inputs of the largest launch of each attention kernel and
-    of every SEARCH during the serve run (for the checks and timings at the
-    path's own shapes) and counts the wrappers' calls.  For attention it
-    holds references: the port never writes a prefill's q/k/v after the
-    call, and a captured cache page (layer 0 at the longest decode step) is
-    not written again.  A SEARCH's table is a view of the pool's index,
-    which later epochs write, so each (512 x 8 int32, one per admit wave)
-    is copied."""
+    of every SEARCH during a run (for the checks and timings at the path's
+    own shapes) and counts the wrappers' calls made outside a CUDA graph's
+    capture (a call inside one launches nothing).  For attention it holds
+    references: the port never writes a prefill's q/k/v after the call,
+    and a decode step writes its pages only at and past its own length.
+    A decode step that replays a graph calls no wrapper: of each captured
+    graph the capture's first paged call (layer 0) is kept, whose q the
+    graph rewrites at every replay, and ``_DecodeGraph.replay`` is watched
+    for the last replay; on ``close`` that replay's layer-0 inputs at its
+    length are the paged input unless an eager call was longer.  A
+    SEARCH's table is a view of the pool's index, which later epochs
+    write, so each (512 x 8 int32, one per admit wave) is copied."""
 
     def __init__(self):
+        import torch
         import repro_torch.models.attention as A
+        import repro_torch.models.model as M
         import repro_torch.serving.kvpool as P
-        self.A, self.P = A, P
-        self.orig = (A.flash_attention, A.paged_attention, P.race_lookup)
-        self.flash = self.paged = None
-        self.flash_shapes = {}      # (q shape, k shape, causal): inputs
-        self.races = []
-        self.calls = {"flash_attention": 0, "paged_attention": 0,
-                      "race_lookup": 0}
+        self.A, self.M, self.P = A, M, P
+        self.orig = (A.flash_attention, A.paged_attention, P.race_lookup,
+                     M._DecodeGraph.replay)
+        self.graphed = {}       # id of a graph's device length: its layer 0
+        self.reset()
+        capturing = torch.cuda.is_current_stream_capturing
 
         def flash_attention(q, k, v, *, causal=True):
+            if capturing():
+                return self.orig[0](q, k, v, causal=causal)
             self.calls["flash_attention"] += 1
             if self.flash is None or q.numel() > self.flash[0].numel():
                 self.flash = (q, k, v, causal)
@@ -1735,23 +1743,73 @@ class ServeCapture:
                 (tuple(q.shape), tuple(k.shape), causal), (q, k, v, causal))
             return self.orig[0](q, k, v, causal=causal)
 
-        def paged_attention(q, kc, vc, valid_len):
+        def paged_attention(q, kc, vc, valid_len, count_len=None):
+            if capturing():
+                self.graphed.setdefault(id(valid_len), (q, kc, vc, valid_len))
+                return self.orig[1](q, kc, vc, valid_len, count_len)
             self.calls["paged_attention"] += 1
-            if self.paged is None or valid_len > self.paged[3]:
-                self.paged = (q, kc, vc, valid_len)
-            return self.orig[1](q, kc, vc, valid_len)
+            vl = count_len if isinstance(valid_len, torch.Tensor) \
+                else valid_len          # a device-held length's host value
+            if self.paged is None or vl > self.paged[3]:
+                self.paged = (q, kc, vc, vl)
+            return self.orig[1](q, kc, vc, valid_len, count_len)
 
         def race_lookup(keys, table):
             self.calls["race_lookup"] += 1
             self.races.append((keys, table.clone()))
             return self.orig[2](keys, table)
 
+        def replay(graph, token, pos):
+            self.last = (graph, pos)
+            return self.orig[3](graph, token, pos)
+
         A.flash_attention, A.paged_attention = flash_attention, paged_attention
         P.race_lookup = race_lookup
+        M._DecodeGraph.replay = replay
+
+    def reset(self):
+        """Forget the calls and inputs so far, but not the graphs' inputs
+        (a warm-up's capture serves the run after it)."""
+        self.flash = self.paged = None
+        self.flash_shapes = {}      # (q shape, k shape, causal): inputs
+        self.races = []
+        self.calls = {"flash_attention": 0, "paged_attention": 0,
+                      "race_lookup": 0}
+        self.last = None        # (graph, position) of the last replay
 
     def close(self):
         self.A.flash_attention, self.A.paged_attention = self.orig[:2]
         self.P.race_lookup = self.orig[2]
+        self.M._DecodeGraph.replay = self.orig[3]
+        if self.last is None:
+            return
+        graph, pos = self.last
+        kept = self.graphed.get(id(graph.pos.valid))
+        if kept is not None and (self.paged is None
+                                 or pos + 1 > self.paged[3]):
+            self.paged = kept[:3] + (pos + 1,)
+
+
+TRACED = ("flash_fwd", "paged_split", "paged_combine")
+
+
+def traced_launches(prof) -> dict:
+    """The attention kernels' launches in a ``torch.profiler`` trace, from
+    its device records, which the kernels of a replayed CUDA graph emit
+    too: ``flash_fwd*`` kernels for ``flash_attention`` and
+    ``paged_combine*`` for ``paged_attention`` (each paged call launches
+    one split and one combine kernel, and the two counts must agree)."""
+    import torch
+    n = dict.fromkeys(TRACED, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CPU:
+            for k in TRACED:
+                n[k] += k in e.name()
+    check(n["paged_split"] == n["paged_combine"],
+          f"the profiler traced {n['paged_split']} paged split and "
+          f"{n['paged_combine']} combine kernels")
+    return {"flash_attention": n["flash_fwd"],
+            "paged_attention": n["paged_combine"]}
 
 
 def serve_prompts(rng, vocab: int, n: int = 8, shared: int = 1024,
@@ -1792,8 +1850,10 @@ def serve_arch(args, arch, tag: str, n_expected=None):
     import torch
     from torch.utils._pytree import tree_leaves
     from repro_torch.configs import get
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.models import build
+    from repro_torch.obs.serve import DECODE_KINDS
     from repro_torch.serving import PoolConfig, Request, ServeEngine
     cfg = get(arch) if isinstance(arch, str) else arch
     arch = cfg.arch_id
@@ -1818,30 +1878,41 @@ def serve_arch(args, arch, tag: str, n_expected=None):
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new=16))
     # warm-up at the run's own shapes (a 4 x 1152 prefill and one decode
-    # step) so that cuBLAS's and the kernels' first-call costs stay out of
-    # the timed window; the counts are set to 0 after it
+    # step, which captures a dense model's decode graph) so that cuBLAS's
+    # and the kernels' first-call costs stay out of the timed window; the
+    # engine is handed its pages, which its prefill refills in place, so
+    # its decode steps replay that graph; the counts are set to 0 after it
     t0 = time.perf_counter()
-    toks = torch.as_tensor(np.stack(prompts[:4]), dtype=torch.int64,
-                           device=model.device)
-    _, cache = model.prefill(params, toks, max_len=2048)
-    model.decode_step(params, cache, toks[:, -1:])
-    torch.cuda.synchronize()
+    capture = ServeCapture()
+    try:
+        toks = torch.as_tensor(np.stack(prompts[:4]), dtype=torch.int64,
+                               device=model.device)
+        _, cache = model.prefill(params, toks, max_len=2048)
+        model.decode_step(params, cache, toks[:, -1:])
+        torch.cuda.synchronize()
+    except BaseException:
+        capture.close()
+        raise
+    capture.reset()
+    eng.cache = cache
     del cache
     log(f"{tag} warm-up (one 4 x 1152 prefill, one decode step): "
         f"{time.perf_counter() - t0:.3f} s")
     tr = eng.enable_trace()
-    capture = ServeCapture()
     reset_launches()
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done = eng.run(max_ticks=100)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = eng.run(max_ticks=100)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         capture.close()
         eng.trace = model.trace = None      # the calls after it untraced
     launches = {k.__name__: k.launches for k in KERNELS}
+    traced = traced_launches(prof)
+    del prof
     pre, dec = tr.of("serve.prefill"), tr.of("serve.decode")
     n_pre, n_dec = len(pre), len(dec)
     tokens = sum(len(q.out) for q in done)
@@ -1860,10 +1931,16 @@ def serve_arch(args, arch, tag: str, n_expected=None):
           f"serve: paged_attention launched {launches['paged_attention']} "
           f"times for {n_dec} decode steps of {n_attn} attention layers")
     check(launches["race_lookup"] > 0, "serve: no race_lookup launch")
-    check(all(capture.calls[k] == launches[k] for k in capture.calls),
+    check(all(traced[k] == launches[k] for k in traced),
+          f"serve: the kernels' counters {launches} differ from the "
+          f"launches the profiler traced, {traced}")
+    check(all(capture.calls[k] == launches[k]
+              for k in ("flash_attention", "race_lookup"))
+          and capture.calls["paged_attention"] <= launches["paged_attention"],
           f"serve: a kernel wrapper was called without launching: "
           f"{capture.calls} calls, {launches} launches")
     c = tr.counters()
+    kinds = {k: c["serve.decode." + k] for k in DECODE_KINDS}
     check(c["serve.prefix.hits"] == sum(hits.values()),
           f"serve: the recorder counted {c['serve.prefix.hits']} prefix hits"
           f" for the requests' {sum(hits.values())}")
@@ -1878,7 +1955,11 @@ def serve_arch(args, arch, tag: str, n_expected=None):
         f"{np.max(dev):.2f}); prefix hits {[hits[r] for r in range(8)]}; "
         f"pool {eng.pool.stats['search_batches']} search batches, "
         f"{c['serve.snapshot.epochs']} SNAPSHOT epochs over "
-        f"{c['serve.insert.waves']} insert waves; launches {launches}; peak "
+        f"{c['serve.insert.waves']} insert waves; decode steps {kinds}; "
+        f"launches {launches}, and the attention kernels' as the profiler "
+        f"traced them {traced} (the run under torch.profiler, CUDA activity "
+        f"only; on a replayed step the counters add what the captured graph "
+        f"holds, worked out, and the trace measures them); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return eng, model, params, prompts, capture, launches
 
@@ -2017,16 +2098,23 @@ def flash_row(inputs, launches, tag: str, where: str, run: str):
 
 def paged_row(inputs, launches, tag: str, run: str):
     """``paged_attention`` on ``inputs`` = (q, kc, vc, valid_len), the
-    longest decode step of a run: held against its plain version, timed
-    with its pages cold in L2 beside its bound and SDPA; its kernels-line
-    row."""
+    longest decode step of a run, through the entry the decode step runs
+    (``valid_len`` a one-element int32 on the card, the grid sized for the
+    pages): held against its plain version, timed with its pages cold in
+    L2 beside its bound and SDPA, and on the device beside the host-int
+    entry; its kernels-line row."""
+    import torch
     from repro_torch.kernels import paged_attention, paged_attention_plain
     from repro_torch.kernels.paged_attention.ops import split_plan
     q, kc, vc, vl = inputs
     nb, tb, B, KV, hd = kc.shape
     H = q.shape[1]
+    dl = torch.tensor([vl], dtype=torch.int32, device=q.device)
+
+    def paged(q, a, b, n):          # the decode step's call
+        return paged_attention(q, a, b, dl, count_len=n)
     out, used, err, typical = check_attn(
-        paged_attention, paged_attention_plain, q, kc, vc, vl,
+        paged, paged_attention_plain, q, kc, vc, vl,
         what=f"paged_attention on {run}'s inputs")
     # a decode step's layers each read their own pages, so every call
     # finds its pages cold in L2: time over copies that overflow its 50 MB
@@ -2038,9 +2126,11 @@ def paged_row(inputs, launches, tag: str, run: str):
     def cold(fn, sets):
         return lambda: fn(*sets[next(turn) % len(sets)])
 
-    kernel = cold(lambda a, b: paged_attention(q, a, b, vl), pages)
+    kernel = cold(lambda a, b: paged(q, a, b, vl), pages)
     ms = time_ms(kernel)
     dev_ms = device_time_ms(kernel)
+    host_dev_ms = device_time_ms(cold(
+        lambda a, b: paged_attention(q, a, b, vl), pages))
     plain_ms = time_ms(cold(lambda a, b: paged_attention_plain(q, a, b, vl),
                             pages), iters=20)
     qs = q[:, :, None]
@@ -2062,11 +2152,15 @@ def paged_row(inputs, launches, tag: str, run: str):
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=lib_ms, library_device_ms=lib_dev_ms)
     splits, chunk = split_plan(vl)
+    grid = split_plan(nb * tb)[0]
     log(f"{tag} paged_attention at {run}'s longest decode step: "
         f"q {tuple(q.shape)}, pages {tuple(kc.shape)}, {q.dtype}, valid_len "
-        f"{vl} ({splits} splits of {chunk} positions: {splits * B * KV} "
-        f"CTAs); pages cold in L2 (6 copies in turn): kernel {ms:.4f} ms per "
-        f"call ({dev_ms:.4f} ms on the device), plain {plain_ms:.4f} ms, "
+        f"{vl} held on the device ({grid} splits of {chunk} positions "
+        f"launched for the pages, {splits} below valid_len: "
+        f"{splits * B * KV} CTAs that work); pages cold in L2 (6 copies in "
+        f"turn): kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
+        f"device; the host-int entry, {splits} splits launched, "
+        f"{host_dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms "
         f"on the device; max abs diff {lib_err:.3g}); byte bound "
         f"{row['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s); max abs "
@@ -2155,14 +2249,18 @@ def model_launches(model, steps: int):
 
 
 def model_run(args, model, params, tag: str, prompt_len: int = 1152):
-    """One 4 x ``prompt_len`` prefill (after a warm-up one) and 4 greedy
-    decode steps through ``Model``, an encoder-decoder's frames (4 x
-    enc_seq x d_model, bf16, from ``--seed``) encoded in the prefill; the
-    launch counts set to 0 just before and read just after.  Checks each
-    kernel's count, finite logits and the cache length.  Returns the
-    capture and the counts."""
+    """One 4 x ``prompt_len`` prefill and 4 greedy decode steps through
+    ``Model``, after a warm-up prefill and decode step whose pages the
+    prefill refills in place (a dense model's steps then replay the graph
+    the warm-up captured), an encoder-decoder's frames (4 x enc_seq x
+    d_model, bf16, from ``--seed``) encoded in the prefill; the launch
+    counts set to 0 just before and read just after, and the attention
+    kernels' launches traced by ``torch.profiler``.  Checks each kernel's
+    count, finite logits and the cache length.  Returns the capture and
+    the counts."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import KERNELS, reset_launches
     cfg = model.cfg
     rng = np.random.default_rng(args.seed)
@@ -2173,47 +2271,60 @@ def model_run(args, model, params, tag: str, prompt_len: int = 1152):
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         frames = torch.randn(4, cfg.enc_seq, cfg.d_model, generator=gen,
                              device="cuda").to(model.dtype)
-    _, cache = model.prefill(params, toks, frames=frames, max_len=2048)
-    del cache
     want, n_attn, n_cross = model_launches(model, steps=4)
     capture = ServeCapture()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
     try:
-        t1 = time.perf_counter()
-        logits, cache = model.prefill(params, toks, frames=frames,
-                                      max_len=2048)
+        _, cache = model.prefill(params, toks, frames=frames, max_len=2048)
+        model.decode_step(params, cache, toks[:, -1:])
+        capture.reset()
         torch.cuda.synchronize()
-        pre_ms = 1e3 * (time.perf_counter() - t1)
-        out, dec_ms = [], []
-        for _ in range(4):
-            tok = logits[:, -1].argmax(-1, keepdim=True)
-            out.append(tok)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
-            logits, cache = model.decode_step(params, cache, tok)
+            logits, cache = model.prefill(params, toks, frames=frames,
+                                          max_len=2048, cache=cache)
             torch.cuda.synchronize()
-            dec_ms.append(1e3 * (time.perf_counter() - t1))
+            pre_ms = 1e3 * (time.perf_counter() - t1)
+            out, dec_ms = [], []
+            for _ in range(4):
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+                out.append(tok)
+                t1 = time.perf_counter()
+                logits, cache = model.decode_step(params, cache, tok)
+                torch.cuda.synchronize()
+                dec_ms.append(1e3 * (time.perf_counter() - t1))
     finally:
         capture.close()
     launches = {k.__name__: k.launches for k in KERNELS}
+    traced = traced_launches(prof)
+    del prof
     flash = want["flash_attention"] - 4 * n_cross
     check(all(launches[k] == v for k, v in want.items()),
           f"{cfg.arch_id}: launches {launches}, expected {want} for one "
           f"prefill and 4 decode steps")
-    check(all(capture.calls[k] == launches[k] for k in want),
+    check(all(traced[k] == want[k] for k in traced),
+          f"{cfg.arch_id}: the profiler traced {traced} attention "
+          f"launches, expected {want}")
+    check(capture.calls["flash_attention"] == launches["flash_attention"]
+          and capture.calls["paged_attention"] <= launches["paged_attention"],
           f"{cfg.arch_id}: a kernel wrapper was called without launching")
     check(bool(torch.isfinite(logits).all()) and
           int(cache["length"]) == toks.shape[1] + 4,
           f"{cfg.arch_id}: non-finite logits or a wrong cache length")
     tokens = 4 * (toks.shape[1] + 4)
+    how = ("replay the graph the warm-up captured"
+           if capture.last is not None else "run eagerly")
     log(f"{tag} {cfg.arch_id}: one 4 x {toks.shape[1]} prefill "
         f"{pre_ms:.2f} ms, 4 decode steps {', '.join(f'{t:.2f}' for t in dec_ms)}"
         f" ms (mean {np.mean(dec_ms):.2f}); {tokens} tokens; greedy tokens "
         f"{torch.cat(out, 1).tolist()}; launches {launches} (flash: "
         f"{flash} a prefill = {n_attn} causal"
         + (f" + {cfg.n_enc_layers} encoder + {n_cross} cross" if cfg.enc_dec
-           else "") + f", {n_cross} a step; paged: {n_attn} a step); peak "
+           else "") + f", {n_cross} a step; paged: {n_attn} a step), equal "
+        f"to the launches the profiler traced ({traced}; the prefill and the "
+        f"steps under torch.profiler, CUDA activity only; the steps "
+        f"{how}); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return capture, launches
 

@@ -48,6 +48,11 @@
 //   first read), so its launch overlaps the split kernel's tail.  (A thread
 //   block cluster per (b, kv head) that combines in distributed shared
 //   memory, with at most 16 splits, measured slower.)
+// * Device-held length (paged_attention_launch_dev): the same kernels read
+//   valid_len from a device int at run time, so a CUDA graph can replay the
+//   call at every decode step.  The grid is sized for all nb * tb
+//   positions; a split CTA whose start is at or past valid_len returns at
+//   once, and the combine sums only the splits below it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -119,6 +124,12 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The positions to attend: the host's valid_len, or with a device-held
+// length vlen, *vlen clamped to valid_len (then the pages' nb * tb)
+__device__ __forceinline__ int run_len(const int* vlen, int valid_len) {
+  return vlen ? min(*vlen, valid_len) : valid_len;
 }
 
 // One warp's share of split blockIdx.x of (b, kv head) = (blockIdx.z,
@@ -209,8 +220,11 @@ paged_split_f32_kernel(const float* __restrict__ q,
                        const float* __restrict__ vc,
                        float* __restrict__ part_o,
                        float2* __restrict__ part_ml, int B, int H, int KV,
-                       int valid_len, int chunk, float qscale) {
+                       int valid_len, int chunk, float qscale,
+                       const int* __restrict__ vlen) {
   using S = Shape<float, HD, MG>;
+  valid_len = run_len(vlen, valid_len);
+  if ((int)blockIdx.x * chunk >= valid_len) return;   // past the length
   const int G = H / KV;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -452,8 +466,11 @@ paged_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ vc,
                        float* __restrict__ part_o,
                        float2* __restrict__ part_ml, int B, int H, int KV,
-                       int valid_len, int chunk, float qscale) {
+                       int valid_len, int chunk, float qscale,
+                       const int* __restrict__ vlen) {
   using S = Shape<__nv_bfloat16, HD, MG>;
+  valid_len = run_len(vlen, valid_len);
+  if ((int)blockIdx.x * chunk >= valid_len) return;   // past the length
   constexpr int R = MG / 8;                   // query heads a lane owns
   constexpr int NT = HD / 8;                  // 8-dim output tiles
   constexpr int LD = NT >= 4 ? 4 : NT;        // of them per ldmatrix
@@ -576,20 +593,24 @@ paged_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // out[b, kvh * G + g, :] from the `splits` partials of (b, kv head), one
 // CTA per (g, kv head, b) and one thread per output dim: a single pass of
 // online rescaling, unrolled so that the loads of eight splits are in
-// flight at once
+// flight at once.  With a device-held length vlen only the splits that
+// start below *vlen (`chunk` positions each) are summed.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD >= 32 ? HD : 32)
 paged_combine_kernel(const float* __restrict__ part_o,
                      const float2* __restrict__ part_ml, T* __restrict__ o,
-                     int H, int KV, int splits) {
+                     int H, int KV, int splits, const int* __restrict__ vlen,
+                     int chunk) {
   const int g = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = gridDim.x, d = threadIdx.x;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");   // the partials
   if (d >= HD) return;
+  const int used =
+      vlen ? min((max(*vlen, 0) + chunk - 1) / chunk, splits) : splits;
   const size_t slot0 = ((size_t)b * KV + kvh) * splits;
   float M = -INFINITY, L = 0.f, acc = 0.f;
 #pragma unroll 8
-  for (int s = 0; s < splits; ++s) {
+  for (int s = 0; s < used; ++s) {
     const float2 ml = part_ml[(slot0 + s) * G + g];
     const float x = part_o[((slot0 + s) * G + g) * HD + d];
     // every split saw a valid position, so ml.x and m_new are finite
@@ -607,7 +628,7 @@ template <typename T, int HD, int MG>
 int launch(const void* q, const void* kc, const void* vc, void* o,
            float* part_o, float2* part_ml, int B, int H, int KV,
            int valid_len, int chunk, int splits, float scale,
-           cudaStream_t stream) {
+           const int* vlen, cudaStream_t stream) {
   using S = Shape<T, HD, MG>;
   const dim3 grid(splits, KV, B);
   cudaError_t err;
@@ -619,7 +640,7 @@ int launch(const void* q, const void* kc, const void* vc, void* o,
     if (err != cudaSuccess) return (int)err;
     paged_split_mma_kernel<HD, MG><<<grid, kThreads, smem, stream>>>(
         (const T*)q, (const T*)kc, (const T*)vc, part_o, part_ml, B, H, KV,
-        valid_len, chunk, scale * kLog2e);
+        valid_len, chunk, scale * kLog2e, vlen);
   } else {
     const size_t smem = sizeof(float) * MG * HD + S::kTailBytes;
     err = cudaFuncSetAttribute(paged_split_f32_kernel<HD, MG>,
@@ -628,7 +649,7 @@ int launch(const void* q, const void* kc, const void* vc, void* o,
     if (err != cudaSuccess) return (int)err;
     paged_split_f32_kernel<HD, MG><<<grid, kThreads, smem, stream>>>(
         (const float*)q, (const float*)kc, (const float*)vc, part_o, part_ml,
-        B, H, KV, valid_len, chunk, scale * kLog2e);
+        B, H, KV, valid_len, chunk, scale * kLog2e, vlen);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -643,7 +664,7 @@ int launch(const void* q, const void* kc, const void* vc, void* o,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, paged_combine_kernel<T, HD>,
                            (const float*)part_o, (const float2*)part_ml,
-                           (T*)o, H, KV, splits);
+                           (T*)o, H, KV, splits, vlen, chunk);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -652,28 +673,28 @@ int launch(const void* q, const void* kc, const void* vc, void* o,
 template <typename T, int HD>
 int launch_g(const void* q, const void* kc, const void* vc, void* o,
              float* po, float2* pml, int B, int H, int KV, int vl, int chunk,
-             int splits, float sc, cudaStream_t s) {
+             int splits, float sc, const int* vlen, cudaStream_t s) {
   if (H / KV <= 8)
     return launch<T, HD, 8>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
-                            splits, sc, s);
+                            splits, sc, vlen, s);
   return launch<T, HD, 16>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
-                           splits, sc, s);
+                           splits, sc, vlen, s);
 }
 
 template <typename T>
 int dispatch(int hd, const void* q, const void* kc, const void* vc, void* o,
              float* po, float2* pml, int B, int H, int KV, int vl, int chunk,
-             int splits, float sc, cudaStream_t s) {
+             int splits, float sc, const int* vlen, cudaStream_t s) {
   switch (hd) {
     case 16:
       return launch_g<T, 16>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
-                             splits, sc, s);
+                             splits, sc, vlen, s);
     case 64:
       return launch_g<T, 64>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
-                             splits, sc, s);
+                             splits, sc, vlen, s);
     case 128:
       return launch_g<T, 128>(q, kc, vc, o, po, pml, B, H, KV, vl, chunk,
-                              splits, sc, s);
+                              splits, sc, vlen, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -701,7 +722,34 @@ extern "C" int paged_attention_launch(const void* q, const void* kc,
   float2* pml = (float2*)part_ml;
   if (is_bf16)
     return dispatch<__nv_bfloat16>(hd, q, kc, vc, out, po, pml, B, H, KV,
-                                   valid_len, chunk, splits, scale, s);
+                                   valid_len, chunk, splits, scale, nullptr,
+                                   s);
   return dispatch<float>(hd, q, kc, vc, out, po, pml, B, H, KV, valid_len,
-                         chunk, splits, scale, s);
+                         chunk, splits, scale, nullptr, s);
+}
+
+// The same call with the length read on the device: valid_len points at
+// one int32 on the card (positions >= *valid_len are masked; 1 <=
+// *valid_len, larger values are clamped to n_pos), read when the kernels
+// run, so the call can be captured once in a CUDA graph and replayed at
+// every length.  n_pos = nb * tb; splits = ceil(n_pos / chunk) CTAs of each
+// (b, kv head) are launched, and part_o / part_ml are sized for them.
+extern "C" int paged_attention_launch_dev(const void* q, const void* kc,
+                                          const void* vc, void* out,
+                                          void* part_o, void* part_ml, int B,
+                                          int H, int KV, int hd,
+                                          const int* valid_len, int n_pos,
+                                          int chunk, int splits, float scale,
+                                          int is_bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (KV < 1 || H % KV != 0 || H / KV > 16 || valid_len == nullptr ||
+      n_pos < 1 || chunk < 1 || splits != (n_pos + chunk - 1) / chunk)
+    return (int)cudaErrorInvalidValue;
+  float* po = (float*)part_o;
+  float2* pml = (float2*)part_ml;
+  if (is_bf16)
+    return dispatch<__nv_bfloat16>(hd, q, kc, vc, out, po, pml, B, H, KV,
+                                   n_pos, chunk, splits, scale, valid_len, s);
+  return dispatch<float>(hd, q, kc, vc, out, po, pml, B, H, KV, n_pos, chunk,
+                         splits, scale, valid_len, s);
 }

@@ -17,6 +17,15 @@ The CUDA path splits the valid positions into chunks of ``SPLIT_CHUNK``
 online-softmax partial (m, l, o) in f32 to scratch allocated here, and a
 combine kernel in the same call sums the splits.  Every call that launches
 adds one to ``paged_attention.launches``.
+
+``valid_len`` may also be a one-element int32 tensor on q's device (the
+device-length entry), which the kernels read when they run, so that a CUDA
+graph captures the call once and replays it at every length
+(``Model.decode_step``): the grid and the scratch are sized for all
+nb * tb positions, the splits that start at or past the length return at
+once, and the combine sums the others.  ``count_len`` is then the length
+where the call is counted (``boundary.plain``: a ``meta`` tensor holds
+none).  A replayed graph adds the calls it holds to ``launches``.
 """
 from __future__ import annotations
 
@@ -44,9 +53,10 @@ def split_plan(valid_len: int, chunk: int = SPLIT_CHUNK) -> tuple:
 
 
 def paged_attention_plain(q: torch.Tensor, kc: torch.Tensor,
-                          vc: torch.Tensor, valid_len: int) -> torch.Tensor:
+                          vc: torch.Tensor, valid_len) -> torch.Tensor:
     """Dense masked attention in f32 over every cache position (the
-    reference's algorithm; the CPU path and the kernel's oracle)."""
+    reference's algorithm; the CPU path and the kernel's oracle);
+    ``valid_len`` a host int or a one-element tensor on q's device."""
     nb, tb, B, KV, hd = kc.shape
     H = q.shape[1]
     G = H // KV
@@ -83,7 +93,14 @@ def _check_inputs(q, kc, vc, valid_len):
     if KV == 0 or q.shape[1] % KV:
         raise ValueError(f"paged_attention: {q.shape[1]} query heads do not "
                          f"group over {KV} kv heads")
-    if not 1 <= int(valid_len):
+    if isinstance(valid_len, torch.Tensor):
+        if valid_len.dtype != torch.int32 or valid_len.numel() != 1 or \
+                valid_len.device != q.device:
+            raise ValueError(f"paged_attention: a device-held valid_len is "
+                             f"one int32 on {q.device}; got "
+                             f"{valid_len.dtype} {tuple(valid_len.shape)} "
+                             f"on {valid_len.device}")
+    elif not 1 <= int(valid_len):
         raise ValueError(f"paged_attention: valid_len {valid_len} < 1")
     if q.dtype not in (torch.bfloat16, torch.float32) or \
             kc.dtype != q.dtype or vc.dtype != q.dtype:
@@ -105,15 +122,28 @@ def _launcher():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher_dev():
+    """The device-length entry point, ``paged_attention_launch_dev``."""
+    fn = build.load("paged_attention").paged_attention_launch_dev
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def paged_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                    valid_len: int) -> torch.Tensor:
+                    valid_len, count_len=None) -> torch.Tensor:
     """Decode attention on the inputs' device (see module docstring)."""
     _check_inputs(q, kc, vc, valid_len)
+    dev_len = isinstance(valid_len, torch.Tensor)
     if q.device.type in ("cpu", "meta"):     # meta: shapes only (a count)
+        n = count_len if dev_len and count_len is not None else valid_len
         return boundary.plain(
             "paged_attention",
             lambda: paged_attention_plain(q, kc, vc, valid_len),
-            *work(q, kc, valid_len))
+            *work(q, kc, n))
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     nb, tb, B, KV, hd = kc.shape
@@ -130,17 +160,22 @@ def paged_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out                              # nothing to launch
-    vl = min(int(valid_len), nb * tb)
-    splits, chunk = split_plan(vl, SPLIT_CHUNK)
+    # a device-held length: the grid and scratch for every position
+    n = nb * tb if dev_len else min(int(valid_len), nb * tb)
+    splits, chunk = split_plan(n, SPLIT_CHUNK)
     part_o = torch.empty(B * H * splits * hd, dtype=torch.float32,
                          device=q.device)
     part_ml = torch.empty(B * H * splits * 2, dtype=torch.float32,
                           device=q.device)
-    err = _launcher()(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                      out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
-                      B, H, KV, hd, vl, chunk, splits, hd ** -0.5,
-                      int(q.dtype == torch.bfloat16),
-                      build.stream_ptr(q.device))
+    args = (q.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+            part_o.data_ptr(), part_ml.data_ptr(), B, H, KV, hd)
+    tail = (hd ** -0.5, int(q.dtype == torch.bfloat16),
+            build.stream_ptr(q.device))
+    if dev_len:
+        err = _launcher_dev()(*args, valid_len.data_ptr(), n, chunk, splits,
+                              *tail)
+    else:
+        err = _launcher()(*args, n, chunk, splits, *tail)
     build.check(err, "paged_attention")
     paged_attention.launches += 1
     return out

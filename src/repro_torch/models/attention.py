@@ -13,7 +13,9 @@ Decode follows the JAX package's kernel route (``attn_decode`` with
 ``paged_attention`` runs with ``valid_len = pos + 1``.  The JAX engine's
 default decode folds the new token into the softmax instead
 (``attn_decode_readonly``); both compute the same function.  The cache is
-updated in place.
+updated in place.  The position and the length live on the device
+(``DecodePos``), so a decode step reads no host number and can be
+captured once as a CUDA graph (``Model.decode_step``).
 
 Training runs ``attn_train``: plain torch ops under autograd, the
 counterpart of the JAX package's ``flash_attention_jnp`` (no kernel runs
@@ -28,6 +30,8 @@ when serving (one launch a layer, also at Sq = 1 in decode), and
 Counterpart of the JAX package's ``models/attention.py``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -148,18 +152,28 @@ def attn_prefill(p, x, rope, kc, vc, *, qk_norm: bool):
     return _out(p, o)
 
 
-def attn_decode(p, x, pos: int, rope, kc, vc, *, qk_norm: bool):
-    """x: (B, 1, D) at cache position ``pos`` (``rope`` holds its angles).
-    Commits the token's K/V into its page, then attends over ``pos + 1``
+class DecodePos(NamedTuple):
+    """A decode step's cache position on the model's device: ``index``
+    (1,) int64, where the token's K/V is written, and ``valid`` (1,)
+    int32 = index + 1, the positions ``paged_attention`` attends over.
+    ``count`` is ``valid`` as a host int when the step's body runs, read
+    only where a count needs a number (``boundary.plain`` on ``meta``)."""
+    index: torch.Tensor
+    valid: torch.Tensor
+    count: int
+
+
+def attn_decode(p, x, pos: DecodePos, rope, kc, vc, *, qk_norm: bool):
+    """x: (B, 1, D) at cache position ``pos`` (``rope`` holds its angles;
+    the caller checks that the position is inside the pages).  Commits
+    the token's K/V into its page, then attends over ``pos.valid``
     positions (``paged_attention``)."""
     nb, tb, B, KV, hd = kc.shape
-    if pos >= nb * tb:
-        raise ValueError(f"attn_decode: position {pos} past the cache's "
-                         f"{nb * tb} slots")
     q, k, v = project_qkv(p, x, rope, qk_norm)
-    kc.view(nb * tb, B, KV, hd)[pos] = k[:, 0]
-    vc.view(nb * tb, B, KV, hd)[pos] = v[:, 0]
-    o = paged_attention(q[:, 0], kc, vc, pos + 1)[:, None]
+    kc.view(nb * tb, B, KV, hd).index_copy_(0, pos.index, k.transpose(0, 1))
+    vc.view(nb * tb, B, KV, hd).index_copy_(0, pos.index, v.transpose(0, 1))
+    o = paged_attention(q[:, 0], kc, vc, pos.valid,
+                        count_len=pos.count)[:, None]
     return _out(p, o)
 
 

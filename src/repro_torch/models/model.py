@@ -19,6 +19,12 @@ Attention layers prefill through ``flash_attention`` and decode through
 cross-attention are non-causal ``flash_attention`` launches.  Mamba, mLSTM
 and sLSTM layers, the MoE and the training forward are plain torch.
 
+A dense decoder on the card replays its decode step as one CUDA graph
+(``_DecodeGraph``): a step is some 1 000-4 000 small kernels, and eagerly
+the host's launching of them paces the card.  The step reads its position
+from the device (``attention.DecodePos``), so one body serves the graph
+and the eager step of every other model and device.
+
 Counterpart of the JAX package's ``models/model.py``.  The mesh and its
 sharding constraints have no single-card use and are left out.
 """
@@ -32,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.heap import resolve_device
+from ..kernels import flash_attention, paged_attention
 from . import attention as A
 from . import ffn as F
 from . import mamba as M
@@ -50,7 +57,9 @@ class LayerSpec:
     cross: bool = False   # whisper decoder cross-attention
 
 
-ENC_SPEC = LayerSpec("attn", "dense")
+# attention + dense FFN: an encoder's layers, and a graphed step's
+DENSE_SPEC = LayerSpec("attn", "dense")
+GRAPH_LAUNCHED = (paged_attention, flash_attention)   # counted per replay
 
 
 def superblock(cfg: ArchConfig) -> Tuple[List[LayerSpec], int]:
@@ -115,6 +124,74 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a tree of dicts, lists and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    return [t for sub in tree if sub is not None for t in _leaves(sub)]
+
+
+def _storage(tensors) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+
+
+class _DecodeGraph:
+    """A dense decode step captured as one CUDA graph for one ``key``
+    (the token's shape, the cache's and the parameters' storage): a
+    static token and position (``DecodePos``) as its inputs, the step's
+    logits as its output, and the kernel launches it holds, which every
+    replay adds to those kernels' ``launches``.  The graph fixes the
+    addresses of the parameters and the cache pages, so the key holds
+    them and the cache is reused across prefills (``Model.prefill``)."""
+
+    def __init__(self, key, token: torch.Tensor, device):
+        self.key = key
+        self.token = torch.empty_like(token)
+        self.pos = A.DecodePos(
+            torch.zeros(1, dtype=torch.int64, device=device),
+            torch.ones(1, dtype=torch.int32, device=device), 1)
+        self.graph = torch.cuda.CUDAGraph()
+        self.logits = None
+        self.launches = (0,) * len(GRAPH_LAUNCHED)
+
+    def _set(self, token, pos: int) -> None:
+        self.token.copy_(token)
+        self.pos.index.fill_(pos)
+        self.pos.valid.fill_(pos + 1)
+
+    def capture(self, model, params, cache, token, pos: int, tr):
+        """This step, run eagerly on a side stream (which also warms up
+        what the capture records), then captured there; returns the eager
+        run's logits."""
+        self._set(token, pos)
+        dp = self.pos._replace(count=pos + 1)
+        cur = torch.cuda.current_stream(self.token.device)
+        side = torch.cuda.Stream(device=self.token.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            logits = model._decode_body(params, cache, self.token, dp, tr)
+        cur.wait_stream(side)
+        logits.record_stream(cur)
+        n0 = [k.launches for k in GRAPH_LAUNCHED]
+        with torch.cuda.graph(self.graph, stream=side):
+            self.logits = model._decode_body(params, cache, self.token, dp,
+                                             None)
+        self.launches = tuple(k.launches - n
+                              for k, n in zip(GRAPH_LAUNCHED, n0))
+        for k, n in zip(GRAPH_LAUNCHED, n0):     # the capture ran nothing
+            k.launches = n
+        return logits
+
+    def replay(self, token, pos: int) -> torch.Tensor:
+        self._set(token, pos)
+        self.graph.replay()
+        for k, n in zip(GRAPH_LAUNCHED, self.launches):
+            k.launches += n
+        return self.logits
+
+
 class Model(torch.nn.Module):
     """A model on one device: pure-function API over an explicit
     parameter tree (it registers no parameters itself)."""
@@ -130,6 +207,11 @@ class Model(torch.nn.Module):
                                      cfg.moe.capacity_factor)
                         if cfg.moe is not None else None)
         self.trace = None       # ServeEngine.enable_trace sets a recorder
+        # whether decode_step replays a graph (the tests clear it to run
+        # the eager step on the card)
+        self._graphed = (self.device.type == "cuda" and not cfg.enc_dec
+                         and all(s == DENSE_SPEC for s in self.specs))
+        self._graph: Optional[_DecodeGraph] = None
 
     # ----------------------------------------------------------- building --
     def init(self, seed: int = 0) -> Dict[str, Any]:
@@ -156,7 +238,7 @@ class Model(torch.nn.Module):
                           for s in self.specs]
         if cfg.enc_dec:
             tree["enc"] = {
-                "layers": [_make_layer_params(pi, cfg, ENC_SPEC,
+                "layers": [_make_layer_params(pi, cfg, DENSE_SPEC,
                                               cfg.n_enc_layers)],
                 "final_norm": pi.param((cfg.d_model,), init="ones"),
                 "pos_embed": pi.param((cfg.enc_seq, cfg.d_model),
@@ -181,7 +263,8 @@ class Model(torch.nn.Module):
         """The mixer of one layer.  ``mode``: 'train' (causal, under
         autograd), 'encode' / 'encode_train' (non-causal, serving /
         training), 'prefill' (fills superblock ``j`` of this position's
-        ``cache``), 'decode' (one token at ``pos`` against it)."""
+        ``cache``), 'decode' (one token at ``pos``, a ``DecodePos``,
+        against it)."""
         cfg = self.cfg
         if spec.mixer == "attn":
             a = p["attn"]
@@ -222,7 +305,7 @@ class Model(torch.nn.Module):
         return out
 
     def _block(self, spec, p, x, mode, rope, j=0, cache=None, xkv=None,
-               pos=0, tr=None, i=0):
+               pos=None, tr=None, i=0):
         """Layer ``i`` of superblock ``j``; with a recorder ``tr``, its
         mixer and its FFN each in a span."""
         cfg = self.cfg
@@ -254,7 +337,7 @@ class Model(torch.nn.Module):
         return x
 
     def _superblock(self, layers, x, j, mode, rope, caches=None, xkv=None,
-                    pos=0, tr=None):
+                    pos=None, tr=None):
         """Superblock ``j``: every position in order (in spans where a
         recorder ``tr`` is given: ``prefill`` and ``decode_step``)."""
         for i, spec in enumerate(self.specs):
@@ -281,7 +364,7 @@ class Model(torch.nn.Module):
         rope = self._rope(torch.arange(S, device=self.device))
         mode = "encode_train" if train else "encode"
         for j in range(self.cfg.n_enc_layers):
-            x = self._block(ENC_SPEC, _layer(enc["layers"][0], j), x, mode,
+            x = self._block(DENSE_SPEC, _layer(enc["layers"][0], j), x, mode,
                             rope)
         return rms_norm(x, enc["final_norm"], self.cfg.norm_eps)
 
@@ -334,16 +417,37 @@ class Model(torch.nn.Module):
     def cache_blocks(self, max_len: int) -> int:
         return max(1, max_len // PAGE_TOKENS)
 
-    def _layer_caches(self, batch: int, max_len: int) -> list:
+    def cache_len(self, seq: int, max_len: int) -> int:
+        """The positions of the cache ``prefill`` builds for ``seq``
+        prompt tokens at ``max_len``."""
+        return max(max_len, pad_to_multiple(seq, PAGE_TOKENS))
+
+    def cache_fits(self, cache, batch: int, seq: int, max_len: int) -> bool:
+        """Whether ``cache`` holds the pages and states, in shape and
+        dtype, that ``prefill`` of (batch, seq) tokens at ``max_len``
+        would build (so it can refill them in place)."""
+        if cache is None:
+            return False
+        want = self._layer_caches(batch, self.cache_len(seq, max_len),
+                                  device="meta")
+        have = _leaves(cache["layers"])
+        dev = self.device           # "cuda" names the current card
+        here = all(t.device.type == dev.type
+                   and dev.index in (None, t.device.index) for t in have)
+        return here and [(t.shape, t.dtype) for t in have] == \
+            [(t.shape, t.dtype) for t in _leaves(want)]
+
+    def _layer_caches(self, batch: int, max_len: int, device=None) -> list:
         """Zeroed per-position caches, leading dim n_super: attention
         pages (kc, vc), each (n_super, n_blocks, t_blk, B, KV, hd), or a
         recurrent state in the reference's ``init_cache`` shapes and
-        dtypes."""
+        dtypes (on ``device``, default the model's)."""
         cfg, n = self.cfg, self.n_super
         nb = self.cache_blocks(max_len)
+        device = device or self.device
 
         def z(*shape, dtype=torch.float32):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
+            return torch.zeros(shape, dtype=dtype, device=device)
         out = []
         for spec in self.specs:
             if spec.mixer == "attn":
@@ -383,51 +487,120 @@ class Model(torch.nn.Module):
                 "length": prompt_len or 0, "cross": cross}
 
     def prefill(self, params, tokens: torch.Tensor,
-                frames: Optional[torch.Tensor] = None, max_len: int = 0):
+                frames: Optional[torch.Tensor] = None, max_len: int = 0,
+                cache: Optional[Dict[str, Any]] = None):
         """tokens (B, S) -> (last-token logits (B, 1, Vp) f32, cache).
 
         ``max_len`` (>= prompt length) sizes the block-paged cache; it is
         at least the prompt length padded to the 1024-token page size.
+        A ``cache`` of an earlier prefill whose pages fit (``cache_fits``)
+        is zeroed and refilled in place, so its storage, which a captured
+        decode step reads, stays where it is; else new pages are built.
         An encoder-decoder encodes ``frames`` first and carries the cross
         K/V in ``cache["cross"]``.  One ``flash_attention`` launch per
         attention layer on the card (and per encoder layer and cross-
         attention)."""
         B, S = tokens.shape
-        max_len = max(max_len, pad_to_multiple(S, PAGE_TOKENS))
-        cache = {"layers": self._layer_caches(B, max_len), "length": S,
-                 "cross": None}
+        max_len = self.cache_len(S, max_len)
+        if self.cache_fits(cache, B, S, max_len):
+            layers = cache["layers"]
+            for t in _leaves(layers):
+                t.zero_()
+        else:
+            layers = self._layer_caches(B, max_len)
+        cache = {"layers": layers, "length": S, "cross": None}
         if self.cfg.enc_dec:
             cache["cross"] = self._cross_kv(params,
                                             self.encode(params, frames))
         rope = self._rope(torch.arange(S, device=self.device))
-        x = self._traced("model.embed", self._embed, params, tokens)
+        tr = self.trace
+        x = self._traced(tr, "model.embed", self._embed, params, tokens)
         for j in range(self.n_super):
             x = self._superblock(params["layers"], x, j, "prefill", rope,
-                                 cache["layers"], cache["cross"],
-                                 tr=self.trace)
-        return (self._traced("model.head", self._head, params, x[:, -1:]),
-                cache)
+                                 cache["layers"], cache["cross"], tr=tr)
+        return (self._traced(tr, "model.head", self._head, params,
+                             x[:, -1:]), cache)
 
     def decode_step(self, params, cache, token: torch.Tensor):
         """token (B, 1); cache from ``prefill``, updated in place and
         returned with ``length`` + 1.  One serve step: one
         ``paged_attention`` launch per attention layer on the card (and
-        one ``flash_attention`` per cross-attention)."""
+        one ``flash_attention`` per cross-attention).
+
+        A dense decoder on the card (``_graphed``: every layer attention
+        and a dense FFN, no cross-attention) captures the step as a CUDA
+        graph the first time it runs at a token shape, cache storage and
+        parameter storage, and replays it at every later step with the
+        token and the position copied in; the logits it returns are then
+        the graph's output, overwritten by the next step.  Other models,
+        and every CPU and ``meta`` run, run the same body eagerly.  With
+        a recorder each step counts ``serve.decode.eager``,
+        ``.graph_captures`` or ``.graph_replays``; the model's spans are
+        taken on the steps that run eagerly (a capture's first run among
+        them), not on a replay."""
         pos = int(cache["length"])
-        rope = self._rope(torch.tensor([pos], device=self.device))
-        x = self._traced("model.embed", self._embed, params, token)
+        self._check_room(cache, pos)
+        tr = self.trace
+        key = self._graph_key(params, cache, token)
+        g = self._graph
+        if key is None:
+            dp = A.DecodePos(
+                torch.full((1,), pos, dtype=torch.int64, device=self.device),
+                torch.full((1,), pos + 1, dtype=torch.int32,
+                           device=self.device), pos + 1)
+            logits = self._decode_body(params, cache, token, dp, tr)
+            kind = "eager"
+        elif g is not None and g.key == key:
+            logits = g.replay(token, pos)
+            kind = "graph_replays"
+        else:
+            self._graph = None          # free the old graph's pool first
+            self._graph = _DecodeGraph(key, token, self.device)
+            logits = self._graph.capture(self, params, cache, token, pos, tr)
+            kind = "graph_captures"
+        if tr is not None:
+            tr.count("serve.decode." + kind)
+        cache["length"] = pos + 1
+        return logits, cache
+
+    def _check_room(self, cache, pos: int) -> None:
+        """Raise unless position ``pos`` is inside the attention pages."""
+        for spec, c in zip(self.specs, cache["layers"]):
+            if spec.mixer == "attn":
+                nb, tb = c[0].shape[1:3]
+                if pos >= nb * tb:
+                    raise ValueError(f"decode_step: position {pos} past "
+                                     f"the cache's {nb * tb} slots")
+                return
+
+    def _graph_key(self, params, cache, token) -> Optional[tuple]:
+        """What a captured step is valid for, or None where the step runs
+        eagerly (not ``_graphed``, or under autograd)."""
+        if not self._graphed:
+            return None
+        leaves = _leaves(params)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+            return None
+        return (tuple(token.shape), token.dtype, token.device,
+                _storage(_leaves(cache["layers"])), _storage(leaves))
+
+    def _decode_body(self, params, cache, token, pos: A.DecodePos, tr):
+        """The decode step's kernels: the same eagerly and under capture
+        (``tr``, the recorder, is None there)."""
+        rope = self._rope(pos.index)
+        x = self._traced(tr, "model.embed", self._embed, params, token)
         for j in range(self.n_super):
             x = self._superblock(params["layers"], x, j, "decode", rope,
                                  cache["layers"], cache.get("cross"), pos,
-                                 self.trace)
-        cache["length"] = pos + 1
-        return self._traced("model.head", self._head, params, x), cache
+                                 tr)
+        return self._traced(tr, "model.head", self._head, params, x)
 
-    def _traced(self, name: str, fn, *args):
-        """``fn(*args)`` in span ``name`` when a recorder is set."""
-        if self.trace is None:
+    @staticmethod
+    def _traced(tr, name: str, fn, *args):
+        """``fn(*args)`` in span ``name`` when a recorder ``tr`` is set."""
+        if tr is None:
             return fn(*args)
-        span = self.trace.begin(name)
+        span = tr.begin(name)
         out = fn(*args)
-        self.trace.end(span)
+        tr.end(span)
         return out

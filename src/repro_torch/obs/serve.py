@@ -28,7 +28,16 @@ answered OK, lost (another page won the slot) and FULL; insert waves and
 the SNAPSHOT epochs they took (the advance of ``pool.stats["epochs"]``
 across each INSERT wave); and the launches of the kernels the engine
 names (``launched``), the advance of each one's ``launches`` across every
-step.
+step; and how each decode step ran (``Model.decode_step``):
+``serve.decode.eager``, ``.graph_captures`` or ``.graph_replays``
+(``DECODE_KINDS``, each present from the start).  A replayed step runs
+no Python per layer: it is one ``serve.decode`` span with no ``model.*``
+spans inside, and its kernels advance their ``launches`` by the launches
+the captured graph holds (counted at the capture, not seen at the replay:
+a profiler trace sees the replayed kernels), so the ``serve.launches.*``
+counters count layers x steps as on an eager step.  The model's spans
+are taken on the steps that run eagerly, a capture's eager first run
+among them.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from ..core.events import OK
 from .registry import Registry
 
 STEP = "serve.step"
+DECODE_KINDS = ("eager", "graph_captures", "graph_replays")   # serve.decode.*
 
 _now = time.perf_counter_ns
 
@@ -86,6 +96,8 @@ class ServeTrace:
         self._events: Dict[int, tuple] = {}       # span -> (start, end)
         self._queued: Dict[int, int] = {}         # id(req) -> queue span
         self._launch0 = (0,) * len(self.launched)
+        for kind in DECODE_KINDS:           # present from the start, at 0
+            self.registry.counter("serve.decode." + kind)
 
     # ------------------------------------------------------------ spans --
     def _open(self, name: str, parent: int, rid: int, layer: int,

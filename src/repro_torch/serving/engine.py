@@ -258,7 +258,10 @@ class ServeEngine:
         return True
 
     def _prefill_all(self):
-        """(Re)prefill the whole active batch into a fresh cache.
+        """(Re)prefill the whole active batch into the cache: the pages of
+        the last prefill, zeroed and refilled in place where they fit
+        (``Model.cache_fits``; a captured decode step reads them where
+        they are), else fresh pages.
 
         Fixed-slot batching: the batch tensor always has max_batch rows;
         empty slots hold a pad prompt of length 1."""
@@ -266,12 +269,16 @@ class ServeEngine:
         L = max(L, 1)
         toks = torch.as_tensor(self.slot_tokens[:, :L], dtype=torch.int64,
                                device=self.device)
-        self.cache = None           # free the old pages before the new ones
+        reuse, self.cache = self.cache, None
+        if not self.model.cache_fits(reuse, toks.shape[0], L, self.max_len):
+            reuse = None            # free the old pages before the new ones
         tr = self.trace
         if tr is not None:
             span = tr.begin("serve.prefill", device=True)
         logits, self.cache = self.model.prefill(self.params, toks,
-                                                max_len=self.max_len)
+                                                max_len=self.max_len,
+                                                cache=reuse)
+        del reuse
         if tr is not None:
             tr.end(span, batch=toks.shape[0], seq=toks.shape[1])
         return logits

@@ -156,6 +156,27 @@ def test_paged_wrapper_takes_plain_version_on_cpu():
         paged_attention(q.double(), kc, vc, 5)
 
 
+@pytest.mark.parametrize("vl", [1, 63, 64, 65, 128])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_paged_device_length_equals_host_int(vl, dt):
+    """A one-element int32 ``valid_len`` (the length a captured decode
+    step reads on the device) gives the host int's output bit for bit on
+    the plain path, at the split edges (64 positions a split) and at all
+    nb * tb = 128 positions; a length of another dtype, shape or device
+    raises."""
+    q, kc, vc = (_pair(x, dt)[1]
+                 for x in _paged_inputs(2, 64, 2, 2, 8, 16, vl))
+    before = paged_attention.launches
+    got = paged_attention(q, kc, vc, torch.tensor([vl], dtype=torch.int32),
+                          count_len=vl)
+    assert paged_attention.launches == before
+    assert torch.equal(got, paged_attention(q, kc, vc, vl))
+    for bad in (torch.tensor([vl]), torch.tensor([vl, vl], dtype=torch.int32),
+                torch.tensor([vl], dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError, match="device-held valid_len"):
+            paged_attention(q, kc, vc, bad)
+
+
 @pytest.mark.parametrize("vl", [0, -1])
 def test_paged_wrapper_raises_below_one_valid_len(vl):
     """A deliberate difference (ROADMAP C): with no position to attend the

@@ -206,6 +206,82 @@ def test_six_decode_steps_match_reference(arch):
                                    rtol=F32)
 
 
+def _host_attn_decode(p, x, pos, rope, kc, vc, *, qk_norm):
+    """``attention.attn_decode`` with its position on the host, as the
+    step ran before its position moved to the device: the new K/V written
+    at a Python index, ``paged_attention`` given a host int."""
+    from repro_torch.models import attention as A
+    nb, tb, B, KV, hd = kc.shape
+    at = pos.count - 1
+    q, k, v = A.project_qkv(p, x, rope, qk_norm)
+    kc.view(nb * tb, B, KV, hd)[at] = k[:, 0]
+    vc.view(nb * tb, B, KV, hd)[at] = v[:, 0]
+    return A._out(p, paged_attention(q[:, 0], kc, vc, at + 1)[:, None])
+
+
+def _decode_run(port, tp, toks, steps):
+    """Prefill ``toks`` and ``steps`` greedy decode steps: the logits of
+    each step, the tokens and the final cache."""
+    logits, cache = port.prefill(tp, torch.from_numpy(toks).long(),
+                                 max_len=128)
+    outs, tokens = [], []
+    for _ in range(steps):
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        tokens.append(tok)
+        logits, cache = port.decode_step(tp, cache, tok)
+        outs.append(logits)
+    return outs, torch.cat(tokens, 1), cache
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen3-32b"])
+def test_device_position_decode_equals_the_host_position_step(arch,
+                                                              monkeypatch):
+    """The capture-safe decode step (its position a device tensor: RoPE
+    from it, the K/V written by ``index_copy_``, ``paged_attention`` given
+    a device-held length) is bit for bit the step with a host position,
+    logits, greedy tokens and caches, over 24 steps from position 50
+    across the 64-position split edge."""
+    from repro_torch.models import attention as A
+    _, _, port, tp = _pair(arch)
+    toks = _prompt(S=50, seed=5)
+    got = _decode_run(port, tp, toks, 24)
+    monkeypatch.setattr(A, "attn_decode", _host_attn_decode)
+    want = _decode_run(port, tp, toks, 24)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    assert torch.equal(got[1], want[1])
+    assert got[2]["length"] == want[2]["length"] == 74
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(_leaves(got[2]["layers"]), _leaves(want[2]["layers"])))
+    assert not port._graphed                # the CPU runs the step eagerly
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen3-32b", "xlstm-350m",
+                                  "jamba-1.5-large-398b"])
+def test_prefill_into_a_reused_cache_equals_a_fresh_one(arch):
+    """``prefill(..., cache=old)`` zeroes and refills the old pages and
+    states in place (their storage stays, as a captured decode step needs)
+    and gives a fresh prefill's logits and cache bit for bit, after decode
+    steps wrote into the old one; a cache of another batch is not reused."""
+    port = build(PC.reduced(PC.get(arch)), device="cpu")
+    tp = port.init(seed=1)
+    a, b = (torch.from_numpy(_prompt(S=40, seed=s)).long() for s in (6, 7))
+    logits, old = port.prefill(tp, a, max_len=128)
+    for _ in range(3):
+        logits, old = port.decode_step(
+            tp, old, logits[:, -1].argmax(-1, keepdim=True))
+    ptrs = [t.data_ptr() for _, t in _leaves(old["layers"])]
+    got, cache = port.prefill(tp, b, max_len=128, cache=old)
+    assert [t.data_ptr() for _, t in _leaves(cache["layers"])] == ptrs
+    want, fresh = port.prefill(tp, b, max_len=128)
+    assert torch.equal(got, want) and cache["length"] == fresh["length"]
+    assert all(torch.equal(x, y) for (_, x), (_, y) in
+               zip(_leaves(cache["layers"]), _leaves(fresh["layers"])))
+    assert port.cache_fits(cache, 2, 40, 128)
+    assert not port.cache_fits(cache, 1, 40, 128)
+    _, one = port.prefill(tp, b[:1], max_len=128, cache=cache)
+    assert all(t.data_ptr() not in ptrs for _, t in _leaves(one["layers"]))
+
+
 def test_model_rejects_unported_families_and_missing_gpu():
     """Every registered config builds on the CPU, its reduced twin with
     the reference's superblock (positions and repeat count); with no
@@ -282,6 +358,25 @@ def test_engine_worker_crash_recovery_and_scale_out(f32_pair):
                             RefCrashed)
     assert got == want
     assert got[1] == got[0] and got[2] == got[3] == []
+
+
+def test_engine_refills_one_cache_in_place(f32_pair, monkeypatch):
+    """Every prefill of an engine after its first refills the first one's
+    pages in place (the storage a captured decode step reads), and the
+    served tokens are those of test_engine_matches_reference."""
+    _, _, port, tp = f32_pair
+    seen = []
+    inner = port.prefill
+
+    def prefill(*args, **kw):
+        logits, cache = inner(*args, **kw)
+        seen.append([t.data_ptr() for _, t in _leaves(cache["layers"])])
+        return logits, cache
+    monkeypatch.setattr(port, "prefill", prefill)
+    eng, done, _ = serve_scenario(ServeEngine, Request, PoolConfig,
+                                  port_block_hashes, port, tp)
+    assert len(seen) >= 2 and all(s == seen[0] for s in seen)
+    assert len(done) == 4 and all(len(q.out) == 4 for q in done)
 
 
 def test_block_hashes_bit_identical():

@@ -5,7 +5,8 @@ over two slots (so four of them queue), with the recorder on and off:
 the span tree of its steps, the served tokens and the engine's and pool's
 counters equal either way, nothing recorded or allocated with it off, no
 synchronising call added with it on, the recorder's counters equal to
-what ``_admit`` computed, and its epoch-ns mapping.
+what ``_admit`` computed, every decode step counted as eager on the CPU,
+and its epoch-ns mapping.
 """
 import time
 
@@ -213,6 +214,24 @@ def test_counters_equal_what_admit_computed(params):
     assert launches == dict.fromkeys(
         ("serve.launches.race_lookup", "serve.launches.paged_attention",
          "serve.launches.flash_attention"), 0)        # none on the CPU
+
+
+def test_decode_kind_counters_on_the_cpu(params):
+    """The three counters of how a decode step ran are present from the
+    recorder's start; on the CPU every decode step runs eagerly (no CUDA
+    graph is captured or replayed), each with its model spans."""
+    assert {k: v for k, v in S.ServeTrace().counters().items()
+            if k.startswith("serve.decode.")} == dict.fromkeys(
+        ("serve.decode.eager", "serve.decode.graph_captures",
+         "serve.decode.graph_replays"), 0)
+    eng, tr, _ = _serve(params, True)
+    c = tr.counters()
+    n = len(tr.of("serve.decode"))
+    assert n == eng.steps - 3 and n > 0
+    assert c["serve.decode.eager"] == n
+    assert c["serve.decode.graph_replays"] == 0
+    assert c["serve.decode.graph_captures"] == 0
+    assert not eng.model._graphed and eng.model._graph is None
 
 
 def test_epoch_ns_mapping_within_a_millisecond():
